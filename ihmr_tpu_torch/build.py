@@ -27,6 +27,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "ihmr_tpu_torch"
 # kernel name -> source, relative to the package
 SOURCES: Dict[str, str] = {
     "exact_collision": "csrc/exact_collision.cu",
+    "nearest_centroid": "csrc/nearest_centroid.cu",
 }
 
 NVCC_FLAGS = [

@@ -1,3 +1,3 @@
-from ihmr_tpu_torch.data.synthetic import generate, make_opt_inputs
+from ihmr_tpu_torch.data.synthetic import BatchList, generate, make_mlp_inputs, make_opt_inputs
 
-__all__ = ["generate", "make_opt_inputs"]
+__all__ = ["BatchList", "generate", "make_mlp_inputs", "make_opt_inputs"]

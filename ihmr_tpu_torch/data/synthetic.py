@@ -10,8 +10,11 @@ separate keypoint model: gt joints plus a small independent jitter (they
 must differ from decode(init params), or the self-consistency losses start
 at zero and no snapshot is ever accepted).
 
-Not ported yet: the interlocked, grazing and single-hand variants and the
-MLP inputs.
+``make_mlp_inputs`` builds the IHMR-MLP batch from the same draws plus a
+seeded stand-in for the cached 1024-d image feature; ``BatchList`` replays
+pre-built batches as the loader of the MLP loops.
+
+Not ported yet: the interlocked, grazing and single-hand variants.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 from ihmr_tpu_torch.core.projection import orthographic_project
 from ihmr_tpu_torch.mano.layer import two_hand_decode_mirrored
 from ihmr_tpu_torch.mano.model import ManoModel
+from ihmr_tpu_torch.refine.mlp_engine import MLPBatch
 from ihmr_tpu_torch.refine.opt_engine import OptBatch, ParamDict, params_from_init
 
 
@@ -98,3 +102,47 @@ def make_opt_inputs(
         init_hand_trans_j=torch.cat([init_trans_j, ones1], dim=-1)[:, None, :],
     )
     return params, opt_batch
+
+
+def make_mlp_inputs(
+    model: ManoModel,
+    batch: int = 8,
+    seed: int = 0,
+    noise: float = 0.15,
+    index_offset: int = 0,
+) -> MLPBatch:
+    """An MLPBatch on ``model``'s device: the ``standard`` draws of
+    ``generate`` plus img_feat = |randn(batch, 1024)| from
+    RandomState(seed + 101), the cached baseline feature's stand-in, and
+    sample indices index_offset .. index_offset + batch - 1."""
+    d = generate(model, batch, seed, noise)
+    dev = model.device
+    rng = np.random.RandomState(seed + 101)
+    ones = torch.ones((batch, 42, 1), device=dev)
+    ones1 = torch.ones((batch, 1), device=dev)
+    return MLPBatch(
+        hand_type_array=torch.ones((batch, 2), device=dev),
+        hand_type_valid=ones1,
+        joints_2d=torch.cat([d["gt_j2"], ones], dim=-1),
+        joints_3d=torch.cat([d["gt_j3"], ones], dim=-1),
+        gt_pose_params=d["gt_pose"],
+        gt_shape_params=d["gt_shape"],
+        mano_params_weight=torch.ones((batch, 2), device=dev),
+        hand_trans=torch.cat([d["gt_trans"], ones1], dim=-1)[:, None, :],
+        img_feat=torch.as_tensor(np.abs(rng.randn(batch, 1024)).astype(np.float32), device=dev),
+        init_joints_2d=torch.cat([d["init_j2"], ones], dim=-1),
+        init_joints_3d=torch.cat([d["init_j3"], ones], dim=-1),
+        init_cam=d["init_cam"],
+        init_pose_params=d["init_pose"],
+        init_shape_params=d["init_shape"],
+        init_hand_trans=d["init_trans"],
+        index=torch.arange(index_offset, index_offset + batch, device=dev),
+    )
+
+
+class BatchList(list):
+    """Pre-built batches, replayed in order every epoch: the loader protocol
+    of the MLP loops (``len``, iteration, ``set_epoch``)."""
+
+    def set_epoch(self, epoch: int) -> None:
+        pass

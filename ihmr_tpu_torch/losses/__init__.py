@@ -3,7 +3,10 @@ from ihmr_tpu_torch.losses.losses import (
     hand_trans_loss,
     joints_2d_loss,
     joints_3d_loss,
+    mano_pose_loss,
+    mano_shape_loss,
     shape_reg_loss,
+    shape_residual_loss,
 )
 
 __all__ = [
@@ -11,5 +14,8 @@ __all__ = [
     "hand_trans_loss",
     "joints_2d_loss",
     "joints_3d_loss",
+    "mano_pose_loss",
+    "mano_shape_loss",
     "shape_reg_loss",
+    "shape_residual_loss",
 ]

@@ -1,9 +1,8 @@
-"""The losses IHMR-OPT uses (port of part of ihmr_tpu/losses/losses.py).
+"""The losses IHMR-OPT and IHMR-MLP use (port of ihmr_tpu/losses/losses.py).
 
 Each maps batch tensors to (scalar mean loss, per-sample loss (B,)) where the
 reference exposes a per-sample variant (those drive snapshot filtering), or
-to the scalar alone. Not ported yet: hand_type, mano_pose, mano_shape and
-shape_residual losses (baseline / MLP paths).
+to the scalar alone. Not ported yet: hand_type_loss (baseline training).
 """
 
 from __future__ import annotations
@@ -12,6 +11,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from ihmr_tpu_torch.core.rotations import axis_angle_to_matrix
 
 _EPS = 1e-7
 
@@ -26,6 +27,30 @@ _FINGER_CHAINS = np.array(
     ]
 )
 FINGER_JOINT_IDXS = np.concatenate([_FINGER_CHAINS.reshape(-1), _FINGER_CHAINS.reshape(-1) + 21])
+
+
+def mano_pose_loss(
+    gt_pose: torch.Tensor,  # (B, 48) or (B, 45) axis-angle
+    pred_pose: torch.Tensor,
+    weight: torch.Tensor,  # (B, 1)
+    use_hand_rotation: bool = False,
+) -> torch.Tensor:
+    """L2 between Rodrigues matrices; a 48-d pose drops its global orient
+    unless ``use_hand_rotation``."""
+    B, dim = gt_pose.shape
+    if dim not in (45, 48):
+        raise ValueError(f"pose must be 45- or 48-d, got {dim}")
+    gt_m = axis_angle_to_matrix(gt_pose.reshape(B, dim // 3, 3))
+    pred_m = axis_angle_to_matrix(pred_pose.reshape(B, dim // 3, 3))
+    if not use_hand_rotation and dim == 48:
+        gt_m, pred_m = gt_m[:, 1:], pred_m[:, 1:]
+    diff = (gt_m - pred_m).reshape(B, -1)
+    return (diff * diff * weight).mean()
+
+
+def mano_shape_loss(gt_shape: torch.Tensor, pred_shape: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """Weighted L1 on betas."""
+    return ((gt_shape - pred_shape).abs() * weight).mean()
 
 
 def joints_2d_loss(
@@ -76,6 +101,11 @@ def shape_reg_loss(shape_params: torch.Tensor) -> Tuple[torch.Tensor, torch.Tens
     diff = shape_params[:, :10] - shape_params[:, 10:]
     sq = diff * diff
     return sq.mean(), sq.mean(dim=1)
+
+
+def shape_residual_loss(pred_shape: torch.Tensor, init_shape: torch.Tensor) -> torch.Tensor:
+    """L1 to the initial betas."""
+    return (pred_shape - init_shape).abs().mean()
 
 
 def finger_reg_loss(joints_3d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -5,7 +5,8 @@ ihmr_tpu/mano/layer.py).
   * the mirrored single-model trick for left hands: flip y/z of the left
     axis-angle params, decode with the right model at batch 2B, negate x of
     the outputs;
-  * the left hand anchored to the right wrist plus a predicted translation.
+  * the left hand anchored to the right wrist plus a predicted translation;
+  * ``HandParams``, the flat 122-d parameter layout and its groups.
 
 Matmuls here must run in full fp32 on the card (the JAX decode pins
 Precision.HIGH): callers set ``device.set_fp32_matmul_precision()``.
@@ -17,6 +18,7 @@ decode, so the OPT engine gives the same results without them.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -100,6 +102,53 @@ def _decode_from_parts(
 def joints21(verts: torch.Tensor, lbs_joints: torch.Tensor) -> torch.Tensor:
     """Append the 5 fingertip vertices to the 16 LBS joints -> (B, 21, 3)."""
     return torch.cat([lbs_joints, verts[:, list(FINGERTIP_VERTEX_IDS)]], dim=1)
+
+
+@dataclass(frozen=True)
+class HandParams:
+    """The 122-dim two-hand parameter vector split into its factor groups.
+
+    Flat layout: [cam(3) | right orient(3) | right pose(45) | left orient(3) |
+    left pose(45) | right betas(10) | left betas(10) | trans(3)]."""
+
+    cam: torch.Tensor  # (..., 3)
+    right_orient: torch.Tensor  # (..., 3)
+    left_orient: torch.Tensor  # (..., 3)
+    right_pose: torch.Tensor  # (..., 45)
+    left_pose: torch.Tensor  # (..., 45)
+    right_shape: torch.Tensor  # (..., 10)
+    left_shape: torch.Tensor  # (..., 10)
+    trans: torch.Tensor  # (..., 3)
+
+    @classmethod
+    def from_flat(cls, params: torch.Tensor) -> "HandParams":
+        if params.shape[-1] != 122:
+            raise ValueError(f"expected (..., 122) hand params, got {tuple(params.shape)}")
+        return cls(
+            cam=params[..., 0:3],
+            right_orient=params[..., 3:6],
+            right_pose=params[..., 6:51],
+            left_orient=params[..., 51:54],
+            left_pose=params[..., 54:99],
+            right_shape=params[..., 99:109],
+            left_shape=params[..., 109:119],
+            trans=params[..., 119:122],
+        )
+
+    def to_flat(self) -> torch.Tensor:
+        return torch.cat(
+            [self.cam, self.pose_params, self.shape_params, self.trans], dim=-1
+        )
+
+    @property
+    def pose_params(self) -> torch.Tensor:
+        """(..., 96) = [right 48 | left 48]."""
+        return torch.cat([self.right_orient, self.right_pose, self.left_orient, self.left_pose], dim=-1)
+
+    @property
+    def shape_params(self) -> torch.Tensor:
+        """(..., 20) = [right 10 | left 10]."""
+        return torch.cat([self.right_shape, self.left_shape], dim=-1)
 
 
 def two_hand_decode_mirrored(

@@ -1,10 +1,13 @@
-"""InterHandEncoder (port of ihmr_tpu/models/encoder.py).
+"""InterHandEncoder and the MLP stage network (port of ihmr_tpu/models/encoder.py).
 
 backbone -> relu -> fc2 (1024 -> 1024) -> relu -> 3-iteration residual
 regressor from the mean parameter vector -> 122 params; a sigmoid 2-way
 handedness classifier on the same feature. Submodule names follow the
 reference's torch encoder (``main_encoder``, ``feat_encoder.1``,
 ``regressor_ih.0``, ``hand_classifier.0``), so its checkpoints load natively.
+
+``SubNetwork``: the per-stage refinement MLP of IHMR-MLP,
+(B, 1024 + 122) -> 512 -> 256 -> 128 -> (B, update_dim), ReLU between layers.
 """
 
 from __future__ import annotations
@@ -41,6 +44,37 @@ class InterHandEncoder(nn.Module):
         for _ in range(self.num_iterations):
             pred = pred + self.regressor_ih(torch.cat([feat, pred], dim=-1))
         return pred, self.hand_classifier(feat)
+
+
+class SubNetwork(nn.Module):
+    """Per-stage refinement MLP: (B, 1024 + 122) -> (B, update_dim)."""
+
+    def __init__(self, update_dim: int, in_dim: int = 1024 + TOTAL_PARAMS_DIM):
+        super().__init__()
+        self.fc1 = nn.Linear(in_dim, 512)
+        self.fc2 = nn.Linear(512, 256)
+        self.fc3 = nn.Linear(256, 128)
+        self.regressor = nn.Linear(128, update_dim)
+        self.update_dim = update_dim
+
+    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
+        x = torch.relu(self.fc1(inputs))
+        x = torch.relu(self.fc2(x))
+        x = torch.relu(self.fc3(x))
+        return self.regressor(x)
+
+
+@torch.no_grad()
+def init_subnetwork_weights(net: SubNetwork, generator: torch.Generator, gain: float = 0.01) -> None:
+    """The JAX package's init: xavier-uniform kernels times ``gain``, zero
+    biases; drawn on the CPU from ``generator`` and copied to the weights'
+    device."""
+    for layer in (net.fc1, net.fc2, net.fc3, net.regressor):
+        fan_out, fan_in = layer.weight.shape
+        limit = (6.0 / (fan_in + fan_out)) ** 0.5
+        w = (torch.rand(layer.weight.shape, generator=generator) * 2.0 - 1.0) * limit * gain
+        layer.weight.copy_(w)
+        layer.bias.zero_()
 
 
 def build_mean_params(mean_pose, mean_betas, device: DeviceLike = None) -> torch.Tensor:

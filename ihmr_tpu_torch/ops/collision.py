@@ -7,12 +7,15 @@ subset of ihmr_tpu/ops/collision.py).
     against those single triangles (``pair_depths_at_tris``);
   * the final metric: ``collision_loss`` with the exact kernel
     (ops/exact_collision.py, the port of the TPU kernel K1), ANDed with the
-    ray-parity inside test (``ray_parity_inside``).
+    ray-parity inside test (``ray_parity_inside``);
+  * the MLP training loop: ``collision_loss(backend="fast")``, each query's
+    nearest-centroid triangle (ops/nearest_centroid.py, the port of the TPU
+    kernel K2) and the exact depth against that one triangle
+    (``pair_depths_fast``).
 
 Outputs follow the reference triple: (batch-mean loss, per-sample loss (B,),
 per-vertex origin-scale depths (B, 2*Vq)), vertex order [right | left].
-Not ported yet: the K-candidate XLA backend, the 2-level and "fast" (K2)
-backends and the grid backend.
+Not ported yet: the K-candidate XLA backend, the 2-level and grid backends.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import Optional, Tuple
 import torch
 
 from ihmr_tpu_torch.ops.exact_collision import pair_depths_exact
+from ihmr_tpu_torch.ops.nearest_centroid import nearest_centroid
 
 _EPS = 1e-12
 
@@ -90,6 +94,12 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
 
+def _centroids(tri: torch.Tensor) -> torch.Tensor:
+    """(..., F, 3, 3) -> (..., F, 3) as jitted JAX computes ``jnp.mean(tri,
+    axis=-2)``: (a + b + c) * fp32(1/3)."""
+    return ((tri[..., 0, :] + tri[..., 1, :]) + tri[..., 2, :]) * (1.0 / 3.0)
+
+
 def nearest_face_indices(
     query: torch.Tensor,  # (B, V, 3)
     mesh_verts: torch.Tensor,  # (B, Vm, 3)
@@ -103,7 +113,7 @@ def nearest_face_indices(
     as eager JAX does, picks another face for ~3% of queries). Ties go to
     the first index. Selection only, no gradient."""
     tri = mesh_verts.detach()[:, faces]  # (B, F, 3, 3)
-    cb = _bf16(((tri[:, :, 0] + tri[:, :, 1]) + tri[:, :, 2]) * (1.0 / 3.0))  # (B, F, 3)
+    cb = _bf16(_centroids(tri))  # (B, F, 3)
     qb = _bf16(query.detach())
     c2 = _bf16((cb[..., 0] * cb[..., 0] + cb[..., 1] * cb[..., 1]) + cb[..., 2] * cb[..., 2])
     q, c = qb[:, :, None, :], cb[:, None, :, :]
@@ -149,6 +159,26 @@ def pair_depths_at_tris(query_r, query_l, tri_r, tri_l, margin: float = 0.0) -> 
         [_depth_at_tris_single(query_r, tri_r, margin), _depth_at_tris_single(query_l, tri_l, margin)],
         dim=1,
     )
+
+
+def pair_depths_fast(
+    right_verts: torch.Tensor,  # (B, V, 3)
+    left_verts: torch.Tensor,  # (B, V, 3)
+    faces_right: torch.Tensor,  # (F, 3)
+    faces_left: torch.Tensor,  # (F, 3)
+) -> torch.Tensor:
+    """(B, 2V) single-candidate depths (``_pair_depths_fast`` of the JAX
+    package): every query's nearest-centroid triangle of the other hand, both
+    directions in ONE launch of the nearest-centroid kernel (N = 2B), then the
+    exact depth against that triangle. Differentiable in the queries only;
+    the mesh side is detached."""
+    B = right_verts.shape[0]
+    tri = torch.cat([left_verts.detach()[:, faces_left], right_verts.detach()[:, faces_right]])  # (2B, F, 3, 3)
+    query = torch.cat([right_verts, left_verts])  # (2B, V, 3)
+    idx = nearest_centroid(query.detach(), _centroids(tri))  # (2B, V)
+    tri_b = torch.gather(tri, 1, idx[..., None, None].expand(-1, -1, 3, 3))  # (2B, V, 3, 3)
+    depth = _depth_at_tris_single(query, tri_b)
+    return torch.cat([depth[:B], depth[B:]], dim=1)
 
 
 # fixed irregular ray direction of the parity test, and its face chunk
@@ -257,17 +287,26 @@ def collision_loss(
     faces_left: torch.Tensor,  # (F, 3)
     hand_type_array: torch.Tensor,  # (B, 2)
     robustifier: Optional[float] = None,
+    num_candidates: int = 8,
     backend: str = "auto",
     parity_filter: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Reference-contract collision loss on the exact backend.
+    """Reference-contract collision loss.
 
-    ``backend`` "auto" and "pallas" both mean the exact kernel (the port of
-    the TPU kernel; its plain version on CPU tensors). ``parity_filter``
-    ANDs the depths with ``ray_parity_inside``."""
-    if backend not in ("auto", "pallas"):
+    ``backend`` "auto" and "pallas" both mean the exact kernel K1 (its plain
+    version on CPU tensors); ``num_candidates`` is unused there, as in JAX.
+    "fast" is the in-loop single-candidate path (``pair_depths_fast``, the
+    kernel K2) and needs ``num_candidates=1``; it follows the JAX package's
+    TPU branch on every device. ``parity_filter`` ANDs the depths with
+    ``ray_parity_inside``."""
+    if backend == "fast":
+        if num_candidates != 1:
+            raise ValueError(f"backend 'fast' is single-candidate; got num_candidates={num_candidates}")
+        depths = pair_depths_fast(right_verts, left_verts, faces_right, faces_left)
+    elif backend in ("auto", "pallas"):
+        depths = pair_depths_exact(right_verts, left_verts, faces_right, faces_left)
+    else:
         raise NotImplementedError(f"collision backend {backend!r} is not ported")
-    depths = pair_depths_exact(right_verts, left_verts, faces_right, faces_left)
     if parity_filter:
         depths = pair_parity_filter(depths, right_verts, left_verts, faces_right, faces_left)
     return depths_to_loss(depths, right_verts, left_verts, hand_type_array, robustifier)

@@ -128,7 +128,7 @@ def main():
         "stage_ms_per_step": [dt / (st.epoch + 1) * 1e3 for st, dt in zip(strategy, stage_s)],
         "profiled_wall_s": wall, "device_busy_s": busy, "idle_share": 1 - busy / wall,
         "kernels_per_step": n_kernels / steps,
-        "top_kernels_ms": {name[:80]: sec * 1e3 for name, (sec, _) in top[:5]},
+        "top_kernels_ms": [[name, sec * 1e3] for name, (sec, _) in top[:5]],  # full names: prefixes collide
     }))
 
 

@@ -41,7 +41,7 @@ import torch
 
 from ihmr_tpu_torch.core.projection import orthographic_project
 from ihmr_tpu_torch.losses import losses as L
-from ihmr_tpu_torch.mano.layer import two_hand_decode_mirrored
+from ihmr_tpu_torch.mano.layer import HandParams, two_hand_decode_mirrored
 from ihmr_tpu_torch.mano.model import ManoModel
 from ihmr_tpu_torch.ops.collision import (
     collision_loss,
@@ -51,11 +51,10 @@ from ihmr_tpu_torch.ops.collision import (
     pair_indices,
     pair_tris_at,
 )
+from ihmr_tpu_torch.refine.adam import Adam
 from ihmr_tpu_torch.refine.schedule import OPT_DEFAULT_LOSS_WEIGHTS, Stage
 
 ParamDict = Dict[str, torch.Tensor]
-
-_ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
 
 
 @dataclass(frozen=True)
@@ -169,6 +168,10 @@ def params_from_init(
         "left_shape": init_shape_params[:, 10:],
         "trans": trans,
     }
+
+
+def params_to_handparams(p: ParamDict) -> HandParams:
+    return HandParams(**{name: p[name] for name in HandParams.__dataclass_fields__})
 
 
 def forward(model: ManoModel, p: ParamDict):
@@ -313,14 +316,6 @@ def _lazy_coll_payload(model: ManoModel, p: ParamDict, config: OptConfig):
     return tri_r, tri_l, pair_aabb_scale(rv, lv)
 
 
-def _bias_corrections(steps: int) -> Tuple[list, list]:
-    """Adam's 1 - b^t for t = 1..steps, in fp32 like the JAX engine."""
-    t = torch.arange(1, steps + 1, dtype=torch.float32)
-    c1 = 1.0 - torch.tensor(_ADAM_B1, dtype=torch.float32) ** t
-    c2 = 1.0 - torch.tensor(_ADAM_B2, dtype=torch.float32) ** t
-    return c1.tolist(), c2.tolist()
-
-
 def run_stage(
     model: ManoModel,
     params: ParamDict,
@@ -340,14 +335,11 @@ def run_stage(
         [(float(pct) + 0.1) / 100.0 for _n, pct in stage.filter_loss], dtype=torch.float32, device=device
     )
     blocked = float(w["collision_loss_weight"]) != 0.0  # a block payload exists
-    lr = stage.lr
     steps = stage.epoch + 1
-    c1, c2 = _bias_corrections(steps)
 
     subset = {k: params[k].detach().clone() for k in stage.update_params}
     frozen = {k: v.detach() for k, v in params.items() if k not in stage.update_params}
-    m = {k: torch.zeros_like(x) for k, x in subset.items()}
-    v = {k: torch.zeros_like(x) for k, x in subset.items()}
+    adam = Adam(subset)
     best = {k: x.detach() for k, x in subset.items()}
     best_select = torch.full((B,), float("inf"), dtype=torch.float32, device=device)
     bars = torch.zeros((len(filter_names), B), dtype=torch.float32, device=device)
@@ -360,17 +352,9 @@ def run_stage(
         grads = torch.autograd.grad(total, list(leaves.values()))
         return {k: a.detach() for k, a in aux.items()}, dict(zip(leaves, grads))
 
-    def update(grads, j):
+    def update(grads):
         nonlocal subset
-        # explicit Adam with bias correction, t = j + 1, eps outside the sqrt
-        with torch.no_grad():
-            for k in subset:
-                m[k] = _ADAM_B1 * m[k] + (1 - _ADAM_B1) * grads[k]
-                v[k] = _ADAM_B2 * v[k] + (1 - _ADAM_B2) * grads[k] ** 2
-            subset = {
-                k: subset[k] - lr * (m[k] / c1[j]) / (torch.sqrt(v[k] / c2[j]) + _ADAM_EPS)
-                for k in subset
-            }
+        subset = adam.step(subset, grads, stage.lr)
 
     def run_block(j0, length, payload):
         nonlocal best, best_select, bars
@@ -385,9 +369,9 @@ def run_stage(
                 improve = (cur <= bars).all(dim=0) & (cur_select < best_select)
             best_select = torch.where(improve, cur_select, best_select)
             best = {k: torch.where(improve[:, None], subset[k], best[k]) for k in subset}
-        update(grads, j0)
-        for j in range(j0 + 1, j0 + length):  # lean steps: gradient + update only
-            update(grads_at(payload)[1], j)
+        update(grads)
+        for _ in range(length - 1):  # lean steps: gradient + update only
+            update(grads_at(payload)[1])
 
     freq = config.save_mid_freq
     nblocks, tail = divmod(steps, freq)
@@ -431,14 +415,12 @@ def optimize_batch(
             model, params, batch, dict(OPT_DEFAULT_LOSS_WEIGHTS), config, outputs=outputs
         )
     rv, lv, joints3d, joints2d = outputs
+    hp = params_to_handparams(params)
     results = {
         "pred_cam_params": params["cam"],
         "pred_hand_trans": params["trans"],
-        "pred_shape_params": torch.cat([params["right_shape"], params["left_shape"]], dim=-1),
-        "pred_pose_params": torch.cat(
-            [params["right_orient"], params["right_pose"], params["left_orient"], params["left_pose"]],
-            dim=-1,
-        ),
+        "pred_shape_params": hp.shape_params,
+        "pred_pose_params": hp.pose_params,
         "pred_right_hand_verts": rv,
         "pred_left_hand_verts": lv,
         "pred_joints_3d": joints3d,

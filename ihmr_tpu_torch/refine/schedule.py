@@ -1,8 +1,12 @@
-"""Refinement stage schedules (port of the OPT part of ihmr_tpu/refine/schedule.py).
+"""Refinement stage schedules (port of ihmr_tpu/refine/schedule.py).
 
 ``opt_default``: 4 stages x 300 epochs (301 steps) — trans -> orients ->
 finger poses (+ finger_reg 1e5) -> shapes; filter {joints_3d_loss_p <= +0%,
 collision_loss <= -10%}, select joints_3d_loss_p.
+``opt_with_cam``: ``opt_default`` plus a camera stage.
+``mlp_default``: 6 stages x 2-5 epochs (trans, left orient, right orient,
+poses, shapes, cam), filter {joints_3d_loss_p +0, collision +0}, select
+collision (cam stage: joints_2d_loss_p), cosine learning-rate decay.
 """
 
 from __future__ import annotations
@@ -57,6 +61,10 @@ class Stage:
     def weights(self) -> Dict[str, float]:
         return dict(self.loss_weights)
 
+    @property
+    def update_dim(self) -> int:
+        return sum(PARAM_GROUP_DIMS[p] for p in self.update_params)
+
 
 def _w(**kw) -> Tuple[Tuple[str, float], ...]:
     return tuple(sorted(kw.items()))
@@ -99,3 +107,70 @@ OPT_DEFAULT_LOSS_WEIGHTS = _w(
     collision_loss_weight=1.0,
     finger_reg_loss_weight=100000.0,
 )
+
+# opt_default plus the camera stage the reference keeps disabled
+opt_with_cam: Tuple[Stage, ...] = opt_default + (
+    Stage(
+        update_params=("cam",),
+        loss_weights=_w(
+            joints_2d_loss=10.0,
+            joints_3d_loss=1000.0,
+            trans_loss_weight=100.0,
+            shape_reg_loss_weight=0.01,
+            collision_loss_weight=1.0,
+            finger_reg_loss_weight=0.0,
+        ),
+        lr=1e-2,
+        epoch=100,
+        filter_loss=(("joints_2d_loss_p", "+0"),),
+        select_loss="joints_2d_loss_p",
+    ),
+)
+
+_MLP_FILTER = (("joints_3d_loss_p", "+0"), ("collision_loss", "+0"))
+
+
+def _mlp_weights(**overrides) -> Tuple[Tuple[str, float], ...]:
+    base = dict(
+        joints_2d_loss=10.0,
+        joints_3d_loss=10.0,
+        mano_pose_loss=10.0,
+        mano_shape_loss=10.0,
+        hand_trans_loss=10.0,
+        shape_reg_loss=0.1,
+        shape_residual_loss=0.0,
+        collision_loss=1.0,
+    )
+    base.update(overrides)
+    return tuple(sorted(base.items()))
+
+
+def _mlp_stage(update, epoch=2, weights=None, filter_loss=_MLP_FILTER, select="collision_loss"):
+    return Stage(
+        update_params=update,
+        loss_weights=weights or _mlp_weights(),
+        lr=1e-4,
+        epoch=epoch,
+        filter_loss=filter_loss,
+        select_loss=select,
+        lr_decay_type="cosine",
+    )
+
+
+mlp_default: Tuple[Stage, ...] = (
+    _mlp_stage(("trans",), weights=_mlp_weights(joints_3d_loss=1000.0, hand_trans_loss=1000.0)),
+    _mlp_stage(("left_orient",)),
+    _mlp_stage(("right_orient",)),
+    _mlp_stage(("left_pose", "right_pose")),
+    _mlp_stage(("left_shape", "right_shape")),
+    _mlp_stage(("cam",), epoch=5, filter_loss=(("joints_2d_loss_p", "+0"),), select="joints_2d_loss_p"),
+)
+
+# default MLP loss weights (warm, select and cascade passes)
+MLP_DEFAULT_LOSS_WEIGHTS = _mlp_weights(shape_residual_loss=1.0)
+
+strategies: Dict[str, Tuple[Stage, ...]] = {
+    "opt_default": opt_default,
+    "opt_with_cam": opt_with_cam,
+    "mlp_default": mlp_default,
+}

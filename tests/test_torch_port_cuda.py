@@ -6,8 +6,12 @@ also runs where JAX is not installed; on the GPU machine:
 
 Tolerances: depths 1e-5 absolute, directions 1e-4 where both sides are
 inside, inside signs equal on >= 99.9% of queries (the same fp32 arithmetic
-as the plain version, tie-set sums in another order); a short refinement on
-the card and on the CPU within 2e-4 (the slice test's bound).
+as the plain version, tie-set sums in another order); nearest-centroid
+indices 100% equal (the same rank arithmetic and tie rules, no sums that
+depend on order); a short refinement on the card and on the CPU within
+2e-4 (the slice test's bound); a short MLP training on both within
+``pipeline.SHORT_MLP_TOL`` (trained weights 1e-5, residuals 2e-6), accept
+masks equal.
 """
 
 import dataclasses
@@ -17,11 +21,15 @@ import pytest
 import torch
 
 from ihmr_tpu_torch import resolve_device
-from ihmr_tpu_torch.data import make_opt_inputs
+from ihmr_tpu_torch.data import make_mlp_inputs, make_opt_inputs
 from ihmr_tpu_torch.device import set_fp32_matmul_precision
 from ihmr_tpu_torch.mano import synthetic_mano_model
 from ihmr_tpu_torch.ops import exact_collision as K
+from ihmr_tpu_torch.ops import nearest_centroid as NC
+from ihmr_tpu_torch.ops.collision import _centroids
+from ihmr_tpu_torch.pipeline import SHORT_MLP_TOL, run_short_mlp, short_mlp_gaps
 from ihmr_tpu_torch.refine import OptConfig, forward, opt_default, optimize_batch
+from ihmr_tpu_torch.refine.mlp_engine import seed_from_backbone
 
 pytestmark = pytest.mark.cuda
 
@@ -89,3 +97,29 @@ def test_short_refinement_matches_cpu(cuda):
     for k in p_cpu:
         np.testing.assert_allclose(p_gpu[k].numpy(), p_cpu[k].numpy(), atol=2e-4, err_msg=k)
     np.testing.assert_allclose(c_gpu.numpy(), c_cpu.numpy(), rtol=1e-3, atol=1e-6)
+
+
+def test_nearest_kernel_matches_plain_version(cuda):
+    mano = synthetic_mano_model(device=cuda)
+    batch = make_mlp_inputs(mano, batch=4, seed=0)
+    with torch.no_grad():
+        rv, lv, _, _ = forward(mano, seed_from_backbone(batch))
+    q = torch.cat([rv, lv])
+    cent = _centroids(torch.cat([lv[:, mano.faces.flip(-1)], rv[:, mano.faces]]))
+    qp, cp = NC.pad_inputs(q, cent)
+    NC.reset_launch_count()
+    idx = NC._launch_kernel(qp, cp, cent.shape[1])
+    torch.cuda.synchronize()
+    assert NC.launch_count == 1
+    ref = NC.nearest_centroid_reference(qp, cp, cent.shape[1])
+    assert torch.equal(idx, ref)
+
+
+def test_short_mlp_training_matches_cpu(cuda):
+    NC.reset_launch_count()
+    gpu = run_short_mlp(cuda)
+    assert NC.launch_count == 6  # one per train step
+    gaps, masks_equal = short_mlp_gaps(gpu, run_short_mlp("cpu"))
+    assert masks_equal
+    for k, gap in gaps.items():
+        assert gap <= SHORT_MLP_TOL[k], (k, gap)

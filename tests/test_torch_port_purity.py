@@ -35,4 +35,12 @@ def test_no_jax_imports(path):
 def test_scan_covers_the_package():
     names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
     assert "chip_smoke.py" in names
-    assert {"ihmr_tpu_torch/ops/exact_collision.py", "ihmr_tpu_torch/refine/opt_engine.py"} <= names
+    assert {
+        "ihmr_tpu_torch/ops/exact_collision.py",
+        "ihmr_tpu_torch/ops/nearest_centroid.py",
+        "ihmr_tpu_torch/refine/adam.py",
+        "ihmr_tpu_torch/refine/mlp_engine.py",
+        "ihmr_tpu_torch/refine/opt_engine.py",
+        "ihmr_tpu_torch/train/mlp.py",
+        "ihmr_tpu_torch/train/stats.py",
+    } <= names
