@@ -15,7 +15,12 @@ Phases (each raises on failure; any failure exits non-zero before the last line)
    error where both are inside, share of equal inside signs;
    nearest_centroid (K2): B=128 hands from make_mlp_inputs(seed=100), both
    directions, an icosphere and planted exact ties: indices must be 100%
-   equal.
+   equal;
+   bn_stats (K3): the ResNet-50 stem input (64, 64, 112, 112), the widest
+   (64, 2048, 7, 7), a ragged (3, 5, 7, 11) and a bf16 (64, 256, 56, 56):
+   sums against a float64 sum (sum x within BN_SUM_TOL of sum |x|, sum x^2
+   within BN_SQ_TOL relative), the same bits on a second launch, and the
+   backward against its formula.
 3. The OPT path at full width: ResNet-50 encoder at 224x224 and the full
    opt_default (4 x 301 Adam steps, save_mid_freq=10) on B=128 hands with the
    full MANO mesh (778 vertices, 1538 faces). One warm-up run, then a timed
@@ -26,11 +31,23 @@ Phases (each raises on failure; any failure exits non-zero before the last line)
    cascade over 16 batches). A warm-up of one train step, one selection batch
    and one cascade batch, then one timed run with the launch counts zeroed
    just before it and read just after.
-5. Small inputs held against the CPU: optimize_batch at B=2 with a short
-   schedule, and pipeline.run_short_mlp (three stages, one epoch, N=4), on
-   the card and on the CPU (plain kernel versions) must agree: the MLP's
+5. Baseline training at full width (scripts/train_bench.py's
+   configuration): ResNet-50 at 224x224, B=64, TrainConfig(total_epoch=1),
+   fp32 without TF32, bn_impl="pallas" (bn_stats, K3, in every train-mode
+   BatchNorm). A warm-up of 2 steps, then train_baseline_loop over 20 steps
+   with the launch counts zeroed just before and read just after (53 K3
+   launches a step), then one eval_step (one K1 launch; its depths again
+   through the plain version). The same 20 steps with bn_impl="stock",
+   timed. K3's time per step: each BatchNorm input shape of one step,
+   kernel against plain version and torch.var_mean.
+6. Small inputs held against the CPU: optimize_batch at B=2 with a short
+   schedule, pipeline.run_short_mlp (three stages, one epoch, N=4) and
+   pipeline.run_short_train (ResNet-18 at 64x64, B=4, two steps), on the
+   card and on the CPU (plain kernel versions) must agree: the MLP's
    trained weights, residuals, cached params and losses within
-   pipeline.SHORT_MLP_TOL, accept masks equal.
+   pipeline.SHORT_MLP_TOL, accept masks equal; the training's step-1
+   metrics, running statistics and params and its step-2 loss within
+   pipeline.SHORT_TRAIN_TOL.
 
 The next-to-last line is {"kernels": [...]} and the last line
 {"ok": true, "device": {...}}. Exits non-zero without a result when CUDA is
@@ -41,6 +58,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -60,6 +78,16 @@ FLOPS_PER_PAIR = 70
 # operations of one query-centroid pair in the nearest-centroid kernel:
 # 3 mul + 2 add for q.c, the doubling and the subtraction from |c|^2
 NEAREST_FLOPS_PER_PAIR = 7
+
+# operations per element of the BatchNorm-statistics kernel: x * x and two adds
+BN_FLOPS_PER_ELEMENT = 3
+# K3 against a float64 sum of the same input, per channel: the error in
+# sum x over sum |x| (a sum near 0 makes a plain relative error meaningless)
+# and the relative error in sum x^2; fp32 accumulation of up to 802,816
+# values a channel
+BN_SUM_TOL = 1e-5
+BN_SQ_TOL = 1e-5
+TRAIN_STEPS = 20
 
 DEPTH_TOL = 1e-5  # fp32, the same arithmetic on both sides
 DIR_TOL = 1e-4  # tie-set averages summed in another order
@@ -238,6 +266,121 @@ def phase_kernels(dev):
     return main, nearest
 
 
+def _bn_rel_errors(s, s2, x):
+    """(max over channels of |s - sum x| / sum |x|, of |s2 - sum x^2| / sum
+    x^2), the sums taken in float64."""
+    dims = (0,) + tuple(range(2, x.dim()))
+    x64 = x.double()
+    ref_s, ref_q, ref_a = x64.sum(dims), (x64 * x64).sum(dims), x64.abs().sum(dims)
+    return (
+        float(((s.double() - ref_s).abs() / ref_a.clamp_min(1e-300)).max()),
+        float(((s2.double() - ref_q).abs() / ref_q.clamp_min(1e-300)).max()),
+    )
+
+
+def _bn_bound_ms(x):
+    """The least time for one K3 call: each input byte read once and both
+    (C,) fp32 outputs written once, or BN_FLOPS_PER_ELEMENT per element."""
+    nbytes = x.numel() * x.element_size() + 2 * x.shape[1] * 4
+    flops = BN_FLOPS_PER_ELEMENT * x.numel()
+    return max(nbytes / PEAK_HBM_BYTES, flops / PEAK_FP32_FLOPS) * 1e3, (
+        "operations" if flops / PEAK_FP32_FLOPS > nbytes / PEAK_HBM_BYTES else "bytes")
+
+
+def cold_ms(fn, n: int = 10) -> float:
+    """Device milliseconds per call of ``fn`` with a cold L2 cache: n calls,
+    each after a 128 MB write that evicts the card's 50 MB L2, captured as
+    one CUDA graph (so no host launch latency between them), less the same
+    graph without ``fn``."""
+    flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+
+    def replay_ms(body):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(n):
+                body()
+        graph.replay()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    both = replay_ms(lambda: (flush.zero_(), fn()))
+    only = replay_ms(flush.zero_)
+    return max(both - only, 0.0) / n
+
+
+def _time_bn(x):
+    """((kernel, plain, torch.var_mean) device ms with a cold L2, the kernel
+    with CUDA events around one call) on ``x``."""
+    from ihmr_tpu_torch.ops import bn_stats as K3
+
+    dims = (0,) + tuple(range(2, x.dim()))
+    fns = (lambda: K3._launch_kernel(x), lambda: K3.bn_stats_reference(x),
+           lambda: torch.var_mean(x, dim=dims, correction=0))
+    return tuple(cold_ms(f) for f in fns), cuda_ms(fns[0], 10)
+
+
+def _compare_bn(x, label):
+    """K3 against a float64 sum and its plain version; determinism; backward."""
+    from ihmr_tpu_torch.ops import bn_stats as K3
+
+    K3.reset_launch_count()
+    s, s2 = K3._launch_kernel(x)
+    again = K3._launch_kernel(x)
+    torch.cuda.synchronize()
+    ps, ps2 = K3.bn_stats_reference(x)
+    k_err, p_err = _bn_rel_errors(s, s2, x), _bn_rel_errors(ps, ps2, x)
+    abs_err = max(float((s - ps).abs().max()), float((s2 - ps2).abs().max()))
+    same_bits = torch.equal(s, again[0]) and torch.equal(s2, again[1])
+
+    view = (1, x.shape[1]) + (1,) * (x.dim() - 2)
+    gen = torch.Generator(device=x.device).manual_seed(0)
+    gs, gs2 = torch.randn((2, x.shape[1]), generator=gen, device=x.device)
+    xg = x.detach().clone().requires_grad_(True)
+    a, b = K3.bn_stats(xg)
+    (a * gs + b * gs2).sum().backward()
+    ref_gx = (gs.reshape(view) + 2.0 * x.float() * gs2.reshape(view)).to(x.dtype)
+    gx_err = float((xg.grad.float() - ref_gx.float()).abs().max() / ref_gx.float().abs().max())
+    log(
+        f"  [{label}] {tuple(x.shape)} {str(x.dtype).replace('torch.', '')}: kernel vs float64: sum err "
+        f"{k_err[0]:.3e} of sum|x| (tol {BN_SUM_TOL}), sum-of-squares rel err {k_err[1]:.3e} (tol {BN_SQ_TOL}); "
+        f"plain version vs float64: {p_err[0]:.3e}, {p_err[1]:.3e}; max |kernel - plain| {abs_err:.3e}; "
+        f"same bits on a second launch: {same_bits}; backward rel err {gx_err:.3e}; "
+        f"{K3.launch_count} kernel launches in this comparison"
+    )
+    if not (k_err[0] <= BN_SUM_TOL and k_err[1] <= BN_SQ_TOL and same_bits and gx_err <= 1e-6):
+        raise AssertionError(f"bn_stats kernel disagrees with its plain version ({label})")
+    (ms, plain_ms, lib_ms), ev_ms = _time_bn(x)
+    bound_ms, bound_by = _bn_bound_ms(x)
+    log(f"  [{label}] device time, cold L2: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.var_mean "
+        f"{lib_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: {x.numel() * x.element_size() / 1e6:.2f} MB); "
+        f"kernel with CUDA events around one call (host launch latency included) {ev_ms:.4f} ms")
+    return abs_err
+
+
+def phase_bn_kernel(dev):
+    log("kernels vs plain versions (bn_stats):")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cases = [
+        ("ResNet-50 stem", (64, 64, 112, 112), torch.float32),
+        ("ResNet-50 widest", (64, 2048, 7, 7), torch.float32),
+        ("ragged", (3, 5, 7, 11), torch.float32),
+        ("bf16", (64, 256, 56, 56), torch.bfloat16),
+    ]
+    errs = []
+    for label, shape, dtype in cases:
+        x = (torch.randn(shape, generator=gen, device=dev) * 2.0 + 0.5).to(dtype)  # a convolution's output
+        errs.append(_compare_bn(x, label))
+        del x
+    return max(errs)
+
+
 def phase_main_path(dev):
     from ihmr_tpu_torch.ops import exact_collision as K
     from ihmr_tpu_torch.ops.collision import pair_parity_filter
@@ -349,6 +492,114 @@ def phase_mlp_path(dev):
     return k1, k2, train_rate, cascade_rate
 
 
+def phase_train_path(dev):
+    import tempfile
+
+    from ihmr_tpu_torch.models.resnet import BatchNorm
+    from ihmr_tpu_torch.ops import bn_stats as K3
+    from ihmr_tpu_torch.ops import exact_collision as K
+    from ihmr_tpu_torch.ops import nearest_centroid as NC
+    from ihmr_tpu_torch.ops.collision import pair_parity_filter
+    from ihmr_tpu_torch.pipeline import make_train_bench_inputs, run_train_pipeline
+    from ihmr_tpu_torch.train import eval_step
+
+    log(f"baseline training: ResNet-50 224x224, B=64, {TRAIN_STEPS} steps of TrainConfig(total_epoch=1), "
+        "fp32 without TF32, bn_impl=pallas (K3)")
+    inputs = make_train_bench_inputs(batch=64, image_size=224, arch="resnet50", bn_impl="pallas", device=dev)
+    B = inputs.batch.img.shape[0]
+    bns = [m for m in inputs.state.encoder.modules() if isinstance(m, BatchNorm)]
+    shapes = []
+    hooks = [m.register_forward_pre_hook(lambda _m, args: shapes.append(tuple(args[0].shape))) for m in bns]
+    t0 = time.perf_counter()
+    run_train_pipeline(inputs, 2)
+    log(f"  warm-up (2 steps and an eval step): {time.perf_counter() - t0:.2f}s; {len(bns)} BatchNorms")
+    for h in hooks:
+        h.remove()
+    step_shapes = shapes[: len(bns)]
+
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        for mod in (K3, K, NC):
+            mod.reset_launch_count()
+        torch.cuda.synchronize()
+        run = run_train_pipeline(inputs, TRAIN_STEPS, checkpoints_dir=tmp, evaluate=False)
+        k3, k2, k1 = K3.launch_count, NC.launch_count, K.launch_count
+        saved = sorted(os.listdir(tmp))
+    ms = run.step_seconds / TRAIN_STEPS * 1e3
+    log(f"  {TRAIN_STEPS} steps: {ms:.3f} ms/step -> {B / ms * 1e3:.3f} images/sec (host clock over the steps, "
+        f"each ending in a host read of its losses; the checkpoint write excluded); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; checkpoints {saved}")
+    log(f"  total loss {run.total_loss[0]:.5f} -> {run.total_loss[-1]:.5f}")
+    log(f"  launches over the steps: bn_stats {k3} (expected {len(bns)} x {TRAIN_STEPS}), nearest_centroid {k2}, "
+        f"exact_collision {k1}")
+    if len(bns) != 53 or k3 != 53 * TRAIN_STEPS or k2 != 0 or k1 != 0:
+        raise AssertionError("the training steps did not launch each kernel the expected number of times")
+
+    K.reset_launch_count()
+    metrics, outputs = eval_step(inputs.state, inputs.batch, inputs.mano_right, inputs.mano_left, inputs.config)
+    torch.cuda.synchronize()
+    eval_k1 = K.launch_count
+    rv, lv = outputs["pred_right_hand_verts"], outputs["pred_left_hand_verts"]
+    faces_r, faces_l = inputs.mano_right.faces, inputs.mano_left.faces
+    q = torch.cat([rv, lv])
+    tri = torch.cat([lv[:, faces_l].reshape(B, -1, 9), rv[:, faces_r].reshape(B, -1, 9)])
+    qp, tp, bounds = K.pad_inputs(q, tri)
+    ref, _, _ = K.exact_penetration_depth_reference(qp, tp, bounds, tri.shape[1])
+    ref = ref[:, : q.shape[1]]
+    ref = pair_parity_filter(torch.cat([ref[:B], ref[B:]], dim=1), rv, lv, faces_r, faces_l)
+    err = float((ref - outputs["collision_loss_origin_scale"]).abs().max())
+    log(f"  eval step: exact_collision launches {eval_k1}; depths kernel vs plain max |err| {err:.3e} "
+        f"(tol {DEPTH_TOL}); inside vertices {int((ref > 0).sum())}; "
+        + ", ".join(f"{k} {float(v):.5f}" for k, v in metrics.items()))
+    if eval_k1 != 1 or err > DEPTH_TOL:
+        raise AssertionError("the eval step's exact collision disagrees or was not launched once")
+    buffers = {k: v for k, v in inputs.state.encoder.state_dict().items() if k.endswith(("running_mean", "running_var"))}
+    bad = [k for k, v in buffers.items() if not bool(torch.isfinite(v).all())]
+    bad += [k for k, v in metrics.items() if not bool(torch.isfinite(v).all())]
+    if bad or not np.isfinite(run.total_loss).all():
+        raise AssertionError(f"non-finite losses or running statistics: {bad[:5]}")
+    log(f"  all {len(run.total_loss)} step losses, {len(metrics)} eval metrics and {len(buffers)} running statistics finite")
+    del inputs, run, outputs
+    torch.cuda.empty_cache()
+
+    stock = make_train_bench_inputs(batch=64, image_size=224, arch="resnet50", bn_impl="stock", device=dev)
+    run_train_pipeline(stock, 2, evaluate=False)
+    stock_run = run_train_pipeline(stock, TRAIN_STEPS, evaluate=False)
+    stock_ms = stock_run.step_seconds / TRAIN_STEPS * 1e3
+    log(f"  bn_impl=stock, the same {TRAIN_STEPS} steps: {stock_ms:.3f} ms/step -> {B / stock_ms * 1e3:.3f} "
+        f"images/sec; total loss {stock_run.total_loss[0]:.5f} -> {stock_run.total_loss[-1]:.5f}")
+    del stock, stock_run
+    torch.cuda.empty_cache()
+
+    return dict(k3=k3, k1=eval_k1, ms_per_step=ms, stock_ms_per_step=stock_ms, k3_step=bn_step_times(dev, step_shapes))
+
+
+def bn_step_times(dev, step_shapes):
+    """K3, its plain version and torch.var_mean over one train step's
+    BatchNorm input shapes (random data), summed: the K3 entry's numbers."""
+    log("  bn_stats over one train step's BatchNorm inputs (random data of each shape; device time, cold L2):")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    counts = {}
+    for shape in step_shapes:
+        counts[shape] = counts.get(shape, 0) + 1
+    events = 0.0
+    for shape, n in counts.items():
+        x = torch.randn(shape, generator=gen, device=dev) * 2.0 + 0.5
+        (k_ms, p_ms, l_ms), ev_ms = _time_bn(x)
+        b_ms, _ = _bn_bound_ms(x)
+        for key, v in zip(("ms", "plain_ms", "library_ms", "bound_ms"), (k_ms, p_ms, l_ms, b_ms)):
+            tot[key] += n * v
+        events += n * ev_ms
+        log(f"    {shape} x{n}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, var_mean {l_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"(kernel with CUDA events around one call {ev_ms:.4f} ms)")
+        del x
+    log(f"  per step ({len(step_shapes)} launches): kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, "
+        f"var_mean {tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms (bytes); kernel with CUDA events "
+        f"around each call {events:.4f} ms")
+    return dict(tot, bound_by="bytes")
+
+
 def phase_small_input(dev):
     from ihmr_tpu_torch.data import make_opt_inputs
     from ihmr_tpu_torch.mano import synthetic_mano_model
@@ -380,6 +631,21 @@ def phase_small_mlp(dev):
         raise AssertionError("the card and the CPU disagree on a small MLP input")
 
 
+def phase_small_train(dev):
+    from ihmr_tpu_torch.ops import bn_stats as K3
+    from ihmr_tpu_torch.pipeline import PARAMS_SHARE, SHORT_TRAIN_TOL, run_short_train, short_train_gaps
+
+    K3.reset_launch_count()
+    gpu = run_short_train(dev)
+    launches = K3.launch_count
+    gaps = short_train_gaps(gpu, run_short_train("cpu"))
+    log(f"small training (ResNet-18 64x64, B=4, 2 steps), card vs CPU: bn_stats launches {launches} (expected 40); "
+        + ", ".join(f"{k} gap {v:.3e} (tol {SHORT_TRAIN_TOL[k]})" for k, v in gaps.items())
+        + f" ('params' over the closest {PARAMS_SHARE:.1%} of entries)")
+    if launches != 40 or any(v > SHORT_TRAIN_TOL[k] for k, v in gaps.items()):
+        raise AssertionError("the card and the CPU disagree on a small training run")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -391,25 +657,36 @@ def main():
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     smi = phase_card_and_build()
     k1, k2 = phase_kernels(dev)
+    k3_err = phase_bn_kernel(dev)
     opt_k1, _hands_per_sec = phase_main_path(dev)
     mlp_k1, mlp_k2, _train_rate, _cascade_rate = phase_mlp_path(dev)
+    train = phase_train_path(dev)
     phase_small_input(dev)
     phase_small_mlp(dev)
+    phase_small_train(dev)
 
     print(smi, flush=True)
     # each path's counts were zeroed before its own timed run; "launches" is
-    # their sum and "launches_by_path" keeps them apart
+    # their sum and "launches_by_path" keeps them apart. K1's and K2's times
+    # are one launch at the main path's shape; K3's are the sum over the 53
+    # launches of one train step ("ms_basis").
     kernels = [
         dict(name="exact_collision", source="ihmr_tpu_torch/csrc/exact_collision.cu",
-             replaces="ihmr_tpu/ops/pallas_collision.py:133", by_path=dict(opt=opt_k1, mlp=mlp_k1), **k1),
+             replaces="ihmr_tpu/ops/pallas_collision.py:133",
+             by_path=dict(opt=opt_k1, mlp=mlp_k1, train=train["k1"]), library_ms=None, **k1),
         dict(name="nearest_centroid", source="ihmr_tpu_torch/csrc/nearest_centroid.cu",
-             replaces="ihmr_tpu/ops/pallas_collision.py:351", by_path=dict(opt=0, mlp=mlp_k2), **k2),
+             replaces="ihmr_tpu/ops/pallas_collision.py:351",
+             by_path=dict(opt=0, mlp=mlp_k2, train=0), library_ms=None, **k2),
+        dict(name="bn_stats", source="ihmr_tpu_torch/csrc/bn_stats.cu", replaces="ihmr_tpu/ops/pallas_bn.py:39",
+             by_path=dict(opt=0, mlp=0, train=train["k3"]), max_abs_err=k3_err,
+             ms_basis="device time with a cold L2, summed over the 53 launches of one ResNet-50 train step "
+                      "at B=64", **train["k3_step"]),
     ]
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": "cuda", "source": k["source"], "replaces": k["replaces"],
          "launches": sum(k["by_path"].values()), "launches_by_path": k["by_path"], "max_abs_err": k["max_abs_err"],
          "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-         "library_ms": None}
+         "library_ms": k["library_ms"], **({"ms_basis": k["ms_basis"]} if "ms_basis" in k else {})}
         for k in kernels
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -28,6 +28,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "ihmr_tpu_torch"
 SOURCES: Dict[str, str] = {
     "exact_collision": "csrc/exact_collision.cu",
     "nearest_centroid": "csrc/nearest_centroid.cu",
+    "bn_stats": "csrc/bn_stats.cu",
 }
 
 NVCC_FLAGS = [

@@ -7,6 +7,11 @@ weights (out, in), BatchNorm scale/bias/mean/var -> weight/bias/running_mean/
 running_var. It is the inverse of the JAX package's torch importer
 (``train/checkpoint.py::import_torch_resnet``).
 
+``adam_from_optax`` carries the optimizer state of the JAX package's
+baseline training (``optax.inject_hyperparams(optax.adam)``: count, mu, nu
+and the injected learning rate) onto the encoder's parameter names, so a
+JAX training state continues in the port.
+
 ``subnetwork_from_jax`` does the same for a flax ``SubNetwork`` (the MLP
 stage network): each Dense kernel (in, out) becomes a Linear weight (out, in).
 
@@ -17,7 +22,7 @@ arrays (``np.asarray`` of each field).
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +31,7 @@ from ihmr_tpu_torch.device import DeviceLike, resolve_device
 from ihmr_tpu_torch.mano.loader import model_from_arrays
 from ihmr_tpu_torch.mano.model import ManoModel
 from ihmr_tpu_torch.models.encoder import InterHandEncoder, SubNetwork
+from ihmr_tpu_torch.refine.adam import Adam
 
 # flax head module -> torch submodule of InterHandEncoder
 _HEAD = {"fc2": "feat_encoder.1", "regressor_ih": "regressor_ih.0", "hand_classifier": "hand_classifier.0"}
@@ -84,23 +90,48 @@ def _load_state(module: torch.nn.Module, entries) -> None:
     module.load_state_dict(state)
 
 
+def _encoder_entries(variables: Mapping):
+    """(flax path, torch key, value in the torch layout) of every leaf of a
+    flax encoder tree ({"params": ..., "batch_stats": ...})."""
+    for path, value in _flatten(variables).items():
+        if path[-1] == "kernel":
+            # conv HWIO -> OIHW; dense (in, out) -> (out, in)
+            value = value.transpose(3, 2, 0, 1) if value.ndim == 4 else value.T
+        yield path, _torch_key(path), value
+
+
 def encoder_from_jax(
-    variables: Mapping, arch: str = "resnet50", device: DeviceLike = None
+    variables: Mapping, arch: str = "resnet50", device: DeviceLike = None, bn_impl: str = "stock"
 ) -> InterHandEncoder:
-    """A torch InterHandEncoder (eval mode, on ``device``) holding the flax
-    encoder's weights. Raises on any flax variable without a counterpart and
-    on any torch parameter or buffer left unset."""
-
-    def entries():
-        for path, value in _flatten(variables).items():
-            if path[-1] == "kernel":
-                # conv HWIO -> OIHW; dense (in, out) -> (out, in)
-                value = value.transpose(3, 2, 0, 1) if value.ndim == 4 else value.T
-            yield path, _torch_key(path), value
-
-    encoder = InterHandEncoder(arch)
-    _load_state(encoder, entries())
+    """A torch InterHandEncoder (eval mode, on ``device``, train-mode
+    BatchNorm by ``bn_impl``) holding the flax encoder's weights. Raises on
+    any flax variable without a counterpart and on any torch parameter or
+    buffer left unset."""
+    encoder = InterHandEncoder(arch, bn_impl=bn_impl)
+    _load_state(encoder, _encoder_entries(variables))
     return encoder.to(resolve_device(device)).eval()
+
+
+def adam_from_optax(opt_state: Any, encoder: InterHandEncoder) -> Tuple[Adam, float]:
+    """(Adam over ``encoder``'s named parameters, learning rate) from the JAX
+    baseline trainer's optimizer state, leaves as numpy: ``opt_state`` is
+    optax's ``InjectHyperparamsState`` whose ``inner_state[0]`` is the
+    ``ScaleByAdamState`` (count, mu, nu; mu and nu shaped like the flax
+    params). Raises unless mu and nu cover every parameter exactly."""
+    adam_state = opt_state.inner_state[0]
+    params = dict(encoder.named_parameters())
+    adam = Adam({}, lr_last=True)
+    for name, tree in (("m", adam_state.mu), ("v", adam_state.nu)):
+        moments = {}
+        for path, key, value in _encoder_entries({"params": tree}):
+            if key not in params or tuple(params[key].shape) != value.shape:
+                raise KeyError(f"optax {name} leaf {'/'.join(path)} {value.shape} does not fit {key}")
+            moments[key] = torch.tensor(np.asarray(value, np.float32), device=params[key].device)
+        if set(moments) != set(params):
+            raise KeyError(f"optax {name} leaves miss {sorted(set(params) - set(moments))}")
+        setattr(adam, name, moments)
+    adam.t = int(np.asarray(adam_state.count))
+    return adam, float(np.asarray(opt_state.hyperparams["learning_rate"]))
 
 
 def subnetwork_from_jax(variables: Mapping, device: DeviceLike = None) -> SubNetwork:

@@ -11,8 +11,10 @@ must differ from decode(init params), or the self-consistency losses start
 at zero and no snapshot is ever accepted).
 
 ``make_mlp_inputs`` builds the IHMR-MLP batch from the same draws plus a
-seeded stand-in for the cached 1024-d image feature; ``BatchList`` replays
-pre-built batches as the loader of the MLP loops.
+seeded stand-in for the cached 1024-d image feature; ``make_baseline_batch``
+builds a baseline training batch (the ground truth of ``generate`` plus
+seeded Gaussian images, as ``scripts/train_bench.py`` does); ``BatchList``
+replays pre-built batches as the loader of the MLP and baseline loops.
 
 Not ported yet: the interlocked, grazing and single-hand variants.
 """
@@ -140,9 +142,41 @@ def make_mlp_inputs(
     )
 
 
+def make_baseline_batch(
+    model: ManoModel,
+    batch: int = 64,
+    image_size: int = 224,
+    seed: int = 0,
+    noise: float = 0.1,
+    image_scale: float = 0.5,
+):
+    """A BaselineBatch on ``model``'s device: the ground truth of
+    ``generate(seed, noise)``, every hand valid and interacting, and images
+    RandomState(seed).randn(batch, image_size, image_size, 3) * image_scale."""
+    from ihmr_tpu_torch.train.baseline import BaselineBatch
+
+    d = generate(model, batch, seed, noise)
+    dev = model.device
+    ones = torch.ones((batch, 42, 1), device=dev)
+    ones1 = torch.ones((batch, 1), device=dev)
+    img = np.random.RandomState(seed).randn(batch, image_size, image_size, 3).astype(np.float32)
+    return BaselineBatch(
+        img=torch.as_tensor(img * np.float32(image_scale), device=dev),
+        hand_type_array=torch.ones((batch, 2), device=dev),
+        hand_type_valid=ones1,
+        joints_2d=torch.cat([d["gt_j2"], ones], dim=-1),
+        joints_3d=torch.cat([d["gt_j3"], ones], dim=-1),
+        gt_pose_params=d["gt_pose"],
+        gt_shape_params=d["gt_shape"],
+        mano_params_weight=torch.ones((batch, 2), device=dev),
+        hand_trans=torch.cat([d["gt_trans"], ones1], dim=-1)[:, None, :],
+        do_flip=torch.zeros((batch,), dtype=torch.int32, device=dev),
+    )
+
+
 class BatchList(list):
     """Pre-built batches, replayed in order every epoch: the loader protocol
-    of the MLP loops (``len``, iteration, ``set_epoch``)."""
+    of the MLP and baseline loops (``len``, iteration, ``set_epoch``)."""
 
     def set_epoch(self, epoch: int) -> None:
         pass

@@ -1,6 +1,7 @@
 from ihmr_tpu_torch.losses.losses import (
     finger_reg_loss,
     hand_trans_loss,
+    hand_type_loss,
     joints_2d_loss,
     joints_3d_loss,
     mano_pose_loss,
@@ -12,6 +13,7 @@ from ihmr_tpu_torch.losses.losses import (
 __all__ = [
     "finger_reg_loss",
     "hand_trans_loss",
+    "hand_type_loss",
     "joints_2d_loss",
     "joints_3d_loss",
     "mano_pose_loss",

@@ -1,8 +1,8 @@
-"""The losses IHMR-OPT and IHMR-MLP use (port of ihmr_tpu/losses/losses.py).
+"""The loss library (port of ihmr_tpu/losses/losses.py).
 
 Each maps batch tensors to (scalar mean loss, per-sample loss (B,)) where the
 reference exposes a per-sample variant (those drive snapshot filtering), or
-to the scalar alone. Not ported yet: hand_type_loss (baseline training).
+to the scalar alone.
 """
 
 from __future__ import annotations
@@ -27,6 +27,18 @@ _FINGER_CHAINS = np.array(
     ]
 )
 FINGER_JOINT_IDXS = np.concatenate([_FINGER_CHAINS.reshape(-1), _FINGER_CHAINS.reshape(-1) + 21])
+
+
+def hand_type_loss(
+    gt_hand_type: torch.Tensor,  # (B, 2) in {0, 1}
+    pred_hand_type: torch.Tensor,  # (B, 2) sigmoid probabilities
+    hand_type_valid: torch.Tensor,  # (B, 1)
+) -> torch.Tensor:
+    """Binary cross-entropy of the handedness probabilities, clipped to
+    [1e-7, 1 - 1e-7], weighted by validity."""
+    p = torch.clamp(pred_hand_type, _EPS, 1.0 - _EPS)
+    bce = -(gt_hand_type * torch.log(p) + (1.0 - gt_hand_type) * torch.log(1.0 - p))
+    return (bce * hand_type_valid).mean()
 
 
 def mano_pose_loss(

@@ -1,4 +1,4 @@
-from ihmr_tpu_torch.mano.layer import HandParams, joints21, mano_decode, two_hand_decode_mirrored
+from ihmr_tpu_torch.mano.layer import HandParams, joints21, mano_decode, two_hand_decode, two_hand_decode_mirrored
 from ihmr_tpu_torch.mano.loader import mirror_mano_model, sort_faces_spatially, synthetic_mano_model
 from ihmr_tpu_torch.mano.model import FINGERTIP_VERTEX_IDS, MANO_PARENTS, ManoModel
 
@@ -12,5 +12,6 @@ __all__ = [
     "mirror_mano_model",
     "sort_faces_spatially",
     "synthetic_mano_model",
+    "two_hand_decode",
     "two_hand_decode_mirrored",
 ]

@@ -4,7 +4,8 @@ ihmr_tpu/mano/layer.py).
   * 16 LBS joints + 5 fingertip vertices -> 21 joints per hand;
   * the mirrored single-model trick for left hands: flip y/z of the left
     axis-angle params, decode with the right model at batch 2B, negate x of
-    the outputs;
+    the outputs; and the two-model decode of baseline training
+    (``two_hand_decode``, with ``loader.mirror_mano_model`` as the left model);
   * the left hand anchored to the right wrist plus a predicted translation;
   * ``HandParams``, the flat 122-d parameter layout and its groups.
 
@@ -192,3 +193,30 @@ def _mirror_and_anchor(
     left_verts = left_verts + shift
     left_joints = left_joints + shift
     return right_verts, left_verts, torch.cat([right_joints, left_joints], dim=1)
+
+
+def two_hand_decode(
+    right_model: ManoModel,
+    left_model: ManoModel,
+    pose_params: torch.Tensor,  # (B, 96)
+    shape_params: torch.Tensor,  # (B, 20)
+    trans: torch.Tensor,  # (B, 3)
+    hands_mean_right: Optional[torch.Tensor] = None,
+    hands_mean_left: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Two-model decode (the baseline path): each hand through its own model,
+    the left wrist anchored to the right wrist + trans. Returns (right_verts
+    (B,778,3), left_verts (B,778,3), joints (B,42,3))."""
+    outs = []
+    for model, mean, pose_shift, betas_shift in (
+        (right_model, hands_mean_right, 0, 0),
+        (left_model, hands_mean_left, 48, 10),
+    ):
+        orient = pose_params[:, pose_shift : pose_shift + 3]
+        pose = pose_params[:, pose_shift + 3 : pose_shift + 48]
+        betas = shape_params[:, betas_shift : betas_shift + 10]
+        verts, lbs_j = mano_decode(model, orient, pose, betas, mean)
+        outs.append((verts, joints21(verts, lbs_j)))
+    (right_verts, right_joints), (left_verts, left_joints) = outs
+    shift = trans[:, None, :] + right_joints[:, 0:1, :] - left_joints[:, 0:1, :]
+    return right_verts, left_verts + shift, torch.cat([right_joints, left_joints + shift], dim=1)

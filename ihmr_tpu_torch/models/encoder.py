@@ -22,11 +22,19 @@ TOTAL_PARAMS_DIM = 122
 
 
 class InterHandEncoder(nn.Module):
-    """Images (B, H, W, 3) NHWC -> (params (B, 122), hand_type (B, 2))."""
+    """Images (B, H, W, 3) NHWC -> (params (B, 122), hand_type (B, 2)).
+    ``bn_impl``: how the backbone's train-mode BatchNorm computes its batch
+    moments ("stock", "fused" or "pallas", the kernel K3; ``models.resnet``)."""
 
-    def __init__(self, arch: str = "resnet50", total_params_dim: int = TOTAL_PARAMS_DIM, num_iterations: int = 3):
+    def __init__(
+        self,
+        arch: str = "resnet50",
+        total_params_dim: int = TOTAL_PARAMS_DIM,
+        num_iterations: int = 3,
+        bn_impl: str = "stock",
+    ):
         super().__init__()
-        self.main_encoder = get_backbone(arch)
+        self.main_encoder = get_backbone(arch, bn_impl=bn_impl)
         self.feat_encoder = nn.Sequential(nn.ReLU(), nn.Linear(1024, 1024), nn.ReLU())
         self.regressor_ih = nn.Sequential(nn.Linear(1024 + total_params_dim, total_params_dim))
         self.hand_classifier = nn.Sequential(nn.Linear(1024, 2), nn.Sigmoid())
@@ -37,13 +45,17 @@ class InterHandEncoder(nn.Module):
         """The 1024-d feature (the MLP cascade's img_feat)."""
         return self.feat_encoder(self.main_encoder(images))
 
-    def forward(self, images: torch.Tensor, mean_params: torch.Tensor):
-        """mean_params: (122,) or (B, 122), the start of the iterative regressor."""
+    def forward(self, images: torch.Tensor, mean_params: torch.Tensor, return_features: bool = False):
+        """mean_params: (122,) or (B, 122), the start of the iterative regressor.
+        With ``return_features`` also the 1024-d feature: (params, hand_type, feat)."""
         feat = self.features(images)
         pred = mean_params.expand(feat.shape[0], self.total_params_dim)
         for _ in range(self.num_iterations):
             pred = pred + self.regressor_ih(torch.cat([feat, pred], dim=-1))
-        return pred, self.hand_classifier(feat)
+        hand_type = self.hand_classifier(feat)
+        if return_features:
+            return pred, hand_type, feat
+        return pred, hand_type
 
 
 class SubNetwork(nn.Module):

@@ -9,7 +9,8 @@ pass accepts or rejects the update per sample and writes the survivors back
 to the caches; (c) ``test_mlp_loop``: the full cascade per batch.
 
 A loader is any iterable of MLPBatches with ``len`` and ``set_epoch``
-(``data.BatchList``). Not ported yet: checkpoint saving (the training slice).
+(``data.BatchList``). With a ``checkpoints_dir`` each trained stage network
+is saved as ``latest_net_mlp_stage_{k:02d}.pth`` (``train/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from ihmr_tpu_torch.refine.mlp_engine import (
 )
 from ihmr_tpu_torch.refine.opt_engine import OptConfig, ParamDict
 from ihmr_tpu_torch.refine.schedule import MLP_DEFAULT_LOSS_WEIGHTS, Stage
+from ihmr_tpu_torch.train import checkpoint as ckpt
 from ihmr_tpu_torch.train.stats import LossStat
 
 _MLP_LOSS_NAMES = (
@@ -119,6 +121,7 @@ def train_mlp_stages(
     sync_fn: Optional[Callable[[MLPCaches], None]] = None,
     print_freq: int = 10,
     stage_stats: Optional[List[Dict]] = None,
+    checkpoints_dir: Optional[str] = None,
 ) -> List[SubNetwork]:
     """Stage-wise training -> the trained SubNetwork of every stage.
 
@@ -134,7 +137,8 @@ def train_mlp_stages(
     stage, the share of samples that accepted the update and the mean select
     loss before and after the selection pass; those also go to
     ``stage_stats`` when given. ``sync_fn(caches)`` runs after every
-    selection pass."""
+    selection pass. The main process saves each trained network to
+    ``checkpoints_dir`` when one is given."""
     generator = generator if generator is not None else torch.Generator().manual_seed(0)
     device = caches.exists.device
     subnets = []
@@ -198,6 +202,8 @@ def train_mlp_stages(
                 flush=True,
             )
         subnets.append(subnet)
+        if checkpoints_dir and is_main:
+            ckpt.save_network(checkpoints_dir, subnet.state_dict(), "mlp", "latest", stage_id=stage_id)
     return subnets
 
 

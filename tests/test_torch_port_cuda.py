@@ -11,7 +11,11 @@ indices 100% equal (the same rank arithmetic and tie rules, no sums that
 depend on order); a short refinement on the card and on the CPU within
 2e-4 (the slice test's bound); a short MLP training on both within
 ``pipeline.SHORT_MLP_TOL`` (trained weights 1e-5, residuals 2e-6), accept
-masks equal.
+masks equal; the BatchNorm-statistics kernel against a float64 sum (sum x
+within 1e-5 of sum |x|, sum x^2 within 1e-5 relative; fp32 accumulation in
+another order) and its backward against the closed form (1e-6 relative); a
+short training on the card and on the CPU within
+``pipeline.SHORT_TRAIN_TOL``.
 """
 
 import dataclasses
@@ -24,10 +28,18 @@ from ihmr_tpu_torch import resolve_device
 from ihmr_tpu_torch.data import make_mlp_inputs, make_opt_inputs
 from ihmr_tpu_torch.device import set_fp32_matmul_precision
 from ihmr_tpu_torch.mano import synthetic_mano_model
+from ihmr_tpu_torch.ops import bn_stats as K3
 from ihmr_tpu_torch.ops import exact_collision as K
 from ihmr_tpu_torch.ops import nearest_centroid as NC
 from ihmr_tpu_torch.ops.collision import _centroids
-from ihmr_tpu_torch.pipeline import SHORT_MLP_TOL, run_short_mlp, short_mlp_gaps
+from ihmr_tpu_torch.pipeline import (
+    SHORT_MLP_TOL,
+    SHORT_TRAIN_TOL,
+    run_short_mlp,
+    run_short_train,
+    short_mlp_gaps,
+    short_train_gaps,
+)
 from ihmr_tpu_torch.refine import OptConfig, forward, opt_default, optimize_batch
 from ihmr_tpu_torch.refine.mlp_engine import seed_from_backbone
 
@@ -123,3 +135,54 @@ def test_short_mlp_training_matches_cpu(cuda):
     assert masks_equal
     for k, gap in gaps.items():
         assert gap <= SHORT_MLP_TOL[k], (k, gap)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((3, 5, 7, 11), torch.float32),  # ragged: scalar loads
+    ((8, 64, 28, 28), torch.float32),  # vector loads, several slices
+    ((8, 32, 14, 14), torch.bfloat16),
+    ((1061, 24), torch.float32),  # (rows, C), the JAX function's layout
+])
+def test_bn_stats_kernel_matches_float64(cuda, shape, dtype):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2.0 + 0.5).to(dtype)
+    K3.reset_launch_count()
+    s, s2 = K3._launch_kernel(x)
+    torch.cuda.synchronize()
+    assert K3.launch_count == 1
+    dims = (0,) + tuple(range(2, x.dim()))
+    x64 = x.double()
+    ref_s, ref_q = x64.sum(dims), (x64 * x64).sum(dims)
+    assert float(((s.double() - ref_s).abs() / x64.abs().sum(dims)).max()) <= 1e-5
+    assert float(((s2.double() - ref_q).abs() / ref_q).max()) <= 1e-5
+    again = K3._launch_kernel(x)
+    assert torch.equal(s, again[0]) and torch.equal(s2, again[1])  # no atomics: the same bits
+
+    xg = x.clone().requires_grad_(True)
+    gs, gs2 = torch.randn((2, x.shape[1]), generator=gen, device="cuda")
+    a, b = K3.bn_stats(xg)
+    (a * gs + b * gs2).sum().backward()
+    view = (1, x.shape[1]) + (1,) * (x.dim() - 2)
+    ref_gx = (gs.reshape(view) + 2.0 * x.float() * gs2.reshape(view)).to(dtype)
+    torch.testing.assert_close(xg.grad, ref_gx, rtol=1e-6, atol=0)
+
+
+def test_bn_stats_kernel_raises_on_other_layouts(cuda):
+    x = torch.randn(4, 8, 6, 6, device="cuda")
+    K3.reset_launch_count()
+    with pytest.raises(ValueError):
+        K3.bn_stats(x.to(memory_format=torch.channels_last))
+    with pytest.raises(ValueError):
+        K3.bn_stats(x[:, :, :, :3])
+    with pytest.raises(ValueError):
+        K3.bn_stats(x.half())
+    assert K3.launch_count == 0
+
+
+def test_short_training_matches_cpu(cuda):
+    K3.reset_launch_count()
+    gpu = run_short_train(cuda)
+    assert K3.launch_count == 40  # 20 BatchNorms x 2 train steps
+    gaps = short_train_gaps(gpu, run_short_train("cpu"))
+    for k, gap in gaps.items():
+        assert gap <= SHORT_TRAIN_TOL[k], (k, gap)
