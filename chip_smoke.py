@@ -8,14 +8,20 @@ Phases (each raises on failure; any failure exits non-zero before the last line)
    kernel of ``ihmr_tpu_torch/csrc`` compiled with nvcc (one process per
    source, started together).
 2. Each kernel against its plain PyTorch version on the card, at the shapes
-   its main path gives it, with kernel and plain times (CUDA events, median)
-   and the least time the card could take:
+   its main path gives it, with the kernel's device time alone (a CUDA graph
+   replay with a cold L2, timing.cold_ms), its time with CUDA events around
+   one wrapper call (host latency included), the plain version's (CUDA
+   events, median) and the least time the card could take:
    exact_collision (K1): B=128 synthetic hands from make_opt_inputs(seed=0),
-   both directions, plus a random icosphere case: max depth error, direction
-   error where both are inside, share of equal inside signs;
+   both directions, a random icosphere, and kernel_cases.exact_cases (ties
+   across a tile boundary, degenerate triangles, n_tri 1 / 129 / 1538, a
+   mesh queried with its own vertices, a block pruned after its first
+   tile): max depth error, direction error where both are inside, share of
+   equal inside signs;
    nearest_centroid (K2): B=128 hands from make_mlp_inputs(seed=100), both
-   directions, an icosphere and planted exact ties: indices must be 100%
-   equal;
+   directions, an icosphere and kernel_cases.nearest_cases (planted exact
+   ties inside a tile and across tiles, an odd centroid count, grid
+   duplicates): indices must be 100% equal;
    bn_stats (K3): the ResNet-50 stem input (64, 64, 112, 112), the widest
    (64, 2048, 7, 7), a ragged (3, 5, 7, 11) and a bf16 (64, 256, 56, 56):
    sums against a float64 sum (sum x within BN_SUM_TOL of sum |x|, sum x^2
@@ -59,7 +65,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -99,22 +104,6 @@ def log(*args):
     print(*args, flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median milliseconds of ``fn`` on the card (CUDA events), after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def phase_card_and_build():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -131,9 +120,10 @@ def phase_card_and_build():
     return smi
 
 
-def _compare_exact(q, tri, label):
+def _compare_exact(q, tri, label, timed=False):
     """Kernel vs plain version on (N, V, 3) queries and (N, F, 9) triangles."""
     from ihmr_tpu_torch.ops import exact_collision as K
+    from ihmr_tpu_torch.timing import cold_ms, cuda_ms
 
     N, V, _ = q.shape
     F = tri.shape[1]
@@ -154,6 +144,8 @@ def _compare_exact(q, tri, label):
     )
     if not (err <= DEPTH_TOL and dir_err <= DIR_TOL and agree >= SIGN_AGREEMENT):
         raise AssertionError(f"exact_collision kernel disagrees with its plain version ({label})")
+    if not timed:
+        return None
 
     # work this run's data needs: real queries x real triangles of every
     # (query block, triangle tile) pair the pruning rule evaluated
@@ -164,21 +156,24 @@ def _compare_exact(q, tri, label):
     nbytes = 4 * (N * V * 3 + N * F * 9 + bounds.numel() + N * V + N * V * 3)
     bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
     bound_by = "operations" if flops / PEAK_FP32_FLOPS >= nbytes / PEAK_HBM_BYTES else "bytes"
-    ms = cuda_ms(lambda: K._launch_kernel(qp, tp, bounds, F), 20)
+    ms = cold_ms(lambda: K._launch_kernel(qp, tp, bounds, F))
+    host_ms = cuda_ms(lambda: K._launch_kernel(qp, tp, bounds, F), 20)
     plain_ms = cuda_ms(lambda: K.exact_penetration_depth_reference(qp, tp, bounds, F), 5)
     log(
-        f"  [{label}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+        f"  [{label}] kernel {ms:.4f} ms on the device alone (cold L2, graph replay), {host_ms:.4f} ms with "
+        f"CUDA events around one wrapper call; plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
         f"{flops / 1e9:.3f} GFLOP evaluated of {N * V * F * FLOPS_PER_PAIR / 1e9:.3f} unpruned, "
         f"{nbytes / 1e6:.2f} MB), library call: none (no single PyTorch call computes this); "
         f"{K.launch_count} kernel launches in this comparison"
     )
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return dict(max_abs_err=err, ms=ms, ms_with_host=host_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def _compare_nearest(q, cent, label, timed=False):
     """Kernel vs plain version on (N, V, 3) queries and (N, F, 3) centroids;
     every index must be equal."""
     from ihmr_tpu_torch.ops import nearest_centroid as NC
+    from ihmr_tpu_torch.timing import cold_ms, cuda_ms
 
     N, V, _ = q.shape
     F = cent.shape[1]
@@ -201,68 +196,55 @@ def _compare_nearest(q, cent, label, timed=False):
     nbytes = 4 * (N * V * 3 + N * F * 4 + N * V)
     bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
     bound_by = "operations" if flops / PEAK_FP32_FLOPS >= nbytes / PEAK_HBM_BYTES else "bytes"
-    ms = cuda_ms(lambda: NC._launch_kernel(qp, cp, F), 50)
+    ms = cold_ms(lambda: NC._launch_kernel(qp, cp, F))
+    host_ms = cuda_ms(lambda: NC._launch_kernel(qp, cp, F), 50)
     plain_ms = cuda_ms(lambda: NC.nearest_centroid_reference(qp, cp, F), 5)
     c2 = cp[:, :F, 3]
     composition_ms = cuda_ms(lambda: (c2[:, None, :] - 2 * torch.bmm(q, cent.mT)).argmin(-1), 20)
     log(
-        f"  [{label}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+        f"  [{label}] kernel {ms:.4f} ms on the device alone (cold L2, graph replay), {host_ms:.4f} ms with "
+        f"CUDA events around one wrapper call; plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
         f"{flops / 1e9:.3f} GFLOP at {NEAREST_FLOPS_PER_PAIR} flop/pair, {nbytes / 1e6:.2f} MB); "
         f"library call: none (no PyTorch call keeps the tile-mean tie rule)"
     )
     log(f"  [{label}] nearest library composition, not the same function: "
         f"(|c|^2 - 2 * torch.bmm(q, c^T)).argmin(-1) {composition_ms:.4f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return dict(max_abs_err=err, ms=ms, ms_with_host=host_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def phase_kernels(dev):
-    from ihmr_tpu_torch.data import make_opt_inputs
-    from ihmr_tpu_torch.mano import synthetic_mano_model
-    from ihmr_tpu_torch.mano.loader import _convex_hull_faces, _fibonacci_sphere
-    from ihmr_tpu_torch.refine import forward
+    from ihmr_tpu_torch import kernel_cases
+    from ihmr_tpu_torch.ops import exact_collision as K
+    from ihmr_tpu_torch.ops.nearest_centroid import nearest_centroid
 
     log("kernels vs plain versions (exact_collision):")
-    mano = synthetic_mano_model(device=dev)
-    params, _ = make_opt_inputs(mano, batch=128, seed=0)
-    with torch.no_grad():
-        rv, lv, _, _ = forward(mano, params)
-    faces_r, faces_l = mano.faces, mano.faces.flip(-1)
-    B = rv.shape[0]
-    q = torch.cat([rv, lv]).contiguous()
-    tri = torch.cat([lv[:, faces_l].reshape(B, -1, 9), rv[:, faces_r].reshape(B, -1, 9)]).contiguous()
-    main = _compare_exact(q, tri, "main path B=128, both directions")
-
-    pts = _fibonacci_sphere(400)
-    sphere_tri = torch.tensor(pts[_convex_hull_faces(pts)].reshape(-1, 9), dtype=torch.float32, device=dev)
+    q, tri = kernel_cases.exact_main_inputs(dev)
+    main = _compare_exact(q, tri, "main path B=128, both directions", timed=True)
+    num, den = kernel_cases.division_operands(dev)
+    diff = int((K.kernel_divide(num, den).view(torch.int32) != K._safe_div(num, den).view(torch.int32)).sum())
+    log(f"  [division] the kernel's branch-free division against torch's on {num.numel()} operand pairs: "
+        f"{diff} differ in any bit (must be 0)")
+    if diff:
+        raise AssertionError("the exact_collision kernel's division does not round as torch's")
+    sphere_tri = torch.tensor(kernel_cases.sphere_triangles(400), dtype=torch.float32, device=dev)
     gen = torch.Generator(device="cpu").manual_seed(1)
     sq = (torch.randn(4, 1000, 3, generator=gen) * 0.6).to(dev)
     _compare_exact(sq, sphere_tri[None].expand(4, -1, -1).contiguous(), "icosphere")
-
-    from ihmr_tpu_torch.data import make_mlp_inputs
-    from ihmr_tpu_torch.ops.collision import _centroids
-    from ihmr_tpu_torch.refine.mlp_engine import seed_from_backbone
+    for label, q, tri in kernel_cases.exact_cases(dev):
+        _compare_exact(q, tri, label)
 
     log("kernels vs plain versions (nearest_centroid):")
-    batch = make_mlp_inputs(mano, batch=128, seed=100)
-    with torch.no_grad():
-        rv, lv, _, _ = forward(mano, seed_from_backbone(batch))
-    q = torch.cat([rv, lv]).contiguous()
-    cent = _centroids(torch.cat([lv[:, faces_l], rv[:, faces_r]])).contiguous()
+    q, cent = kernel_cases.nearest_main_inputs(dev)
     nearest = _compare_nearest(q, cent, "MLP path B=128, both directions", timed=True)
     sphere_cent = sphere_tri[:-1].reshape(-1, 3, 3).mean(1)  # an odd centroid count
     _compare_nearest(sq, sphere_cent[None].expand(4, -1, -1).contiguous(), "icosphere")
-    tie = torch.rand((2, 300, 3), generator=gen).to(dev) * 5 + 5
-    target = torch.tensor([0.1, -0.2, 0.3], device=dev)
-    tie[0, [3, 10]] = target  # one tile: the mean index, (3 + 10) / 2 -> 6
-    tie[1, [5, 200]] = target  # two tiles: the first stays -> 5
-    tq = target + (torch.rand((2, 20, 3), generator=gen).to(dev) - 0.5) * 0.02
-    from ihmr_tpu_torch.ops.nearest_centroid import nearest_centroid
-
-    picks = nearest_centroid(tq, tie)
-    _compare_nearest(tq, tie, "planted ties")
-    if not (bool((picks[0] == 6).all()) and bool((picks[1] == 5).all())):
-        raise AssertionError(f"planted ties picked {picks[:, 0].tolist()}, expected [6, 5]")
-    log("  [planted ties] picks 6 and 5 as the tie rules say")
+    for label, q, cent, picks in kernel_cases.nearest_cases(dev):
+        _compare_nearest(q, cent, label)
+        if picks is not None:
+            got = nearest_centroid(q, cent)
+            if not all(bool((got[n] == p).all()) for n, p in enumerate(picks)):
+                raise AssertionError(f"[{label}] picked {got[:, 0].tolist()}, expected {list(picks)}")
+            log(f"  [{label}] picks {list(picks)} as the tie rules say")
     return main, nearest
 
 
@@ -287,38 +269,11 @@ def _bn_bound_ms(x):
         "operations" if flops / PEAK_FP32_FLOPS > nbytes / PEAK_HBM_BYTES else "bytes")
 
 
-def cold_ms(fn, n: int = 10) -> float:
-    """Device milliseconds per call of ``fn`` with a cold L2 cache: n calls,
-    each after a 128 MB write that evicts the card's 50 MB L2, captured as
-    one CUDA graph (so no host launch latency between them), less the same
-    graph without ``fn``."""
-    flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
-    fn()
-    torch.cuda.synchronize()
-
-    def replay_ms(body):
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(n):
-                body()
-        graph.replay()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end)
-
-    both = replay_ms(lambda: (flush.zero_(), fn()))
-    only = replay_ms(flush.zero_)
-    return max(both - only, 0.0) / n
-
-
 def _time_bn(x):
     """((kernel, plain, torch.var_mean) device ms with a cold L2, the kernel
     with CUDA events around one call) on ``x``."""
     from ihmr_tpu_torch.ops import bn_stats as K3
+    from ihmr_tpu_torch.timing import cold_ms, cuda_ms
 
     dims = (0,) + tuple(range(2, x.dim()))
     fns = (lambda: K3._launch_kernel(x), lambda: K3.bn_stats_reference(x),
@@ -669,14 +624,18 @@ def main():
     # each path's counts were zeroed before its own timed run; "launches" is
     # their sum and "launches_by_path" keeps them apart. K1's and K2's times
     # are one launch at the main path's shape; K3's are the sum over the 53
-    # launches of one train step ("ms_basis").
+    # launches of one train step ("ms_basis"). "ms" is device time alone.
     kernels = [
         dict(name="exact_collision", source="ihmr_tpu_torch/csrc/exact_collision.cu",
              replaces="ihmr_tpu/ops/pallas_collision.py:133",
-             by_path=dict(opt=opt_k1, mlp=mlp_k1, train=train["k1"]), library_ms=None, **k1),
+             by_path=dict(opt=opt_k1, mlp=mlp_k1, train=train["k1"]), library_ms=None,
+             ms_basis="device time of one launch at B=128 (both directions) with a cold L2, CUDA graph replay; "
+                      "ms_with_host: CUDA events around one wrapper call", **k1),
         dict(name="nearest_centroid", source="ihmr_tpu_torch/csrc/nearest_centroid.cu",
              replaces="ihmr_tpu/ops/pallas_collision.py:351",
-             by_path=dict(opt=0, mlp=mlp_k2, train=0), library_ms=None, **k2),
+             by_path=dict(opt=0, mlp=mlp_k2, train=0), library_ms=None,
+             ms_basis="device time of one launch at B=128 (both directions) with a cold L2, CUDA graph replay; "
+                      "ms_with_host: CUDA events around one wrapper call", **k2),
         dict(name="bn_stats", source="ihmr_tpu_torch/csrc/bn_stats.cu", replaces="ihmr_tpu/ops/pallas_bn.py:39",
              by_path=dict(opt=0, mlp=0, train=train["k3"]), max_abs_err=k3_err,
              ms_basis="device time with a cold L2, summed over the 53 launches of one ResNet-50 train step "
@@ -686,7 +645,8 @@ def main():
         {"name": k["name"], "route": "cuda", "source": k["source"], "replaces": k["replaces"],
          "launches": sum(k["by_path"].values()), "launches_by_path": k["by_path"], "max_abs_err": k["max_abs_err"],
          "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-         "library_ms": k["library_ms"], **({"ms_basis": k["ms_basis"]} if "ms_basis" in k else {})}
+         "library_ms": k["library_ms"], "ms_basis": k["ms_basis"],
+         **({"ms_with_host": k["ms_with_host"]} if "ms_with_host" in k else {})}
         for k in kernels
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

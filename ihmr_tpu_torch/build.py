@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "ihmr_tpu_torch"
@@ -39,6 +39,7 @@ NVCC_FLAGS = [
 ]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_functions: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def nvcc_path() -> str:
@@ -62,17 +63,24 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     nvcc processes started together. Returns {name: {"seconds", "log"}};
     raises with nvcc's output if any build fails."""
     names = list(SOURCES if names is None else names)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = {name: (PACKAGE_DIR / SOURCES[name], library_path(name)) for name in names if not library_path(name).exists()}
+    report = {name: {"seconds": 0.0, "log": "already built"} for name in names if name not in todo}
+    report.update(build_sources(todo))
+    return report
+
+
+def build_sources(jobs: Dict[str, Tuple[Path, Path]]) -> Dict[str, dict]:
+    """Compile {name: (source, library)} with the package's flags, all nvcc
+    processes started together. Returns {name: {"seconds", "log"}}; raises
+    with nvcc's output if any build fails."""
     procs = {}
     t0 = time.perf_counter()
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            continue
+    for name, (src, out) in jobs.items():
+        out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(PACKAGE_DIR / SOURCES[name])]
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, out)
-    report = {name: {"seconds": 0.0, "log": "already built"} for name in names if name not in procs}
+    report = {}
     failed = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
@@ -92,6 +100,19 @@ def load_library(name: str) -> ctypes.CDLL:
         build_all([name])
         _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return _loaded[name]
+
+
+def kernel_function(name: str, symbol: str, argtypes: List[type]):
+    """The C entry point ``symbol`` of kernel ``name``'s library, returning
+    an int, its ctypes signature set once (setting it costs more host time
+    than a launch)."""
+    key = (name, symbol)
+    if key not in _functions:
+        fn = getattr(load_library(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _functions[key] = fn
+    return _functions[key]
 
 
 if __name__ == "__main__":

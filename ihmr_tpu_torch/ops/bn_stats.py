@@ -32,6 +32,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ihmr_tpu_torch.build import kernel_function
+
 THREADS = 256  # threads per block (csrc/bn_stats.cu kThreads)
 TARGET_BLOCKS = 1024  # about 8 blocks of 256 threads per SM on 132 SMs
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -88,22 +90,12 @@ def bn_stats_reference(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return xf.sum(dims), (xf * xf).sum(dims)
 
 
-_forward_fn = None  # the configured ctypes entry point, set at the first launch
-
-
-def _kernel_entry():
-    global _forward_fn
-    if _forward_fn is None:
-        from ihmr_tpu_torch.build import load_library
-
-        fn = load_library("bn_stats").ihmr_bn_stats_forward
-        fn.argtypes = (
-            [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_longlong]
-            + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
-        _forward_fn = fn
-    return _forward_fn
+# the C entry point's arguments: x, dtype code, sums, sums of squares,
+# partials, batch, channels, hw, team, runs per slice, slices, vector, stream
+_FORWARD_ARGS = (
+    [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_longlong]
+    + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+)
 
 
 def _launch_kernel(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -117,7 +109,7 @@ def _launch_kernel(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
             f"{tuple(x.shape)} strides {x.stride()}"
         )
     plan = launch_plan(tuple(x.shape), x.element_size(), aligned=x.data_ptr() % 16 == 0)
-    fn = _kernel_entry()
+    fn = kernel_function("bn_stats", "ihmr_bn_stats_forward", _FORWARD_ARGS)
     C = plan.channels
     # one allocation: (sum, sum of squares), then the slices' partials
     buf = torch.empty((2 * C * (1 + plan.slices if plan.slices > 1 else 1),), dtype=torch.float32, device=x.device)

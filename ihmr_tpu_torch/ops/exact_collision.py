@@ -34,7 +34,9 @@ from typing import Tuple
 
 import torch
 
-Q_TILE = 128  # queries per block (one thread each)
+from ihmr_tpu_torch.build import kernel_function
+
+Q_TILE = 128  # queries padded to a multiple of this (the pruning group of a block)
 T_TILE = 128  # triangles per tile
 TIE_REL = 1e-3  # relative d2 tolerance of the tie set
 _BIG = 1e30
@@ -195,10 +197,12 @@ def exact_penetration_depth_reference(
     return depth, acc[..., 1:] * scale[..., None], evaluated
 
 
+# the C entry point's arguments: query, tri, bounds, depth, dir, n, vp, fp, n_tri, stream
+_FORWARD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
 def _launch_kernel(q, tri, bounds, n_tri):
     """Launch csrc/exact_collision.cu on padded CUDA inputs."""
-    from ihmr_tpu_torch.build import load_library
-
     global launch_count
     N, Vp, _ = q.shape
     Fp = tri.shape[1]
@@ -209,10 +213,9 @@ def _launch_kernel(q, tri, bounds, n_tri):
             raise ValueError("kernel inputs must lie on one device")
     if Vp % Q_TILE or Fp % T_TILE or not 0 < n_tri <= Fp:
         raise ValueError(f"bad padded sizes Vp={Vp} Fp={Fp} n_tri={n_tri}")
-    lib = load_library("exact_collision")
-    fn = lib.ihmr_exact_collision_forward
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    if bounds.data_ptr() % 16:
+        raise ValueError("tile bounds are read as float4 and must be 16-byte aligned")
+    fn = kernel_function("exact_collision", "ihmr_exact_collision_forward", _FORWARD_ARGS)
     depth = torch.empty((N, Vp), dtype=torch.float32, device=q.device)
     dirs = torch.empty((N, Vp, 3), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -225,6 +228,24 @@ def _launch_kernel(q, tri, bounds, n_tri):
         raise RuntimeError(f"exact_collision kernel launch failed: cudaError {err}")
     launch_count += 1
     return depth, dirs
+
+
+def kernel_divide(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """The CUDA kernel's division, ``_safe_div(num, den)``, elementwise on
+    contiguous fp32 CUDA tensors of one shape: a check that its branch-free
+    fast path rounds as an IEEE division does. Not on any path; not counted."""
+    if not (num.is_cuda and den.device == num.device and num.shape == den.shape):
+        raise ValueError("kernel_divide takes two CUDA tensors of one shape")
+    num, den = num.float().contiguous(), den.float().contiguous()
+    fn = kernel_function(
+        "exact_collision", "ihmr_exact_collision_divide", [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    )
+    out = torch.empty_like(num)
+    with torch.cuda.device(num.device):
+        err = fn(num.data_ptr(), den.data_ptr(), out.data_ptr(), num.numel(), torch.cuda.current_stream(num.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"exact_collision divide check failed to launch: cudaError {err}")
+    return out
 
 
 def exact_penetration_depth_with_dir(query: torch.Tensor, tri: torch.Tensor):

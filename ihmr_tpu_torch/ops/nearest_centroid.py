@@ -29,7 +29,9 @@ import ctypes
 
 import torch
 
-Q_TILE = 128  # queries per block (one thread each)
+from ihmr_tpu_torch.build import kernel_function
+
+Q_TILE = 128  # queries padded to a multiple of this
 T_TILE = 128  # centroids per tile
 _BIG = 1e30
 
@@ -88,10 +90,12 @@ def nearest_centroid_reference(q: torch.Tensor, cent: torch.Tensor, n_tri: int) 
     return best_idx.to(torch.int32)
 
 
+# the C entry point's arguments: query, cent, index, n, vp, fp, n_tri, stream
+_FORWARD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
 def _launch_kernel(q: torch.Tensor, cent: torch.Tensor, n_tri: int) -> torch.Tensor:
     """Launch csrc/nearest_centroid.cu on padded CUDA inputs -> (N, Vp) int32."""
-    from ihmr_tpu_torch.build import load_library
-
     global launch_count
     N, Vp, _ = q.shape
     Fp = cent.shape[1]
@@ -104,11 +108,10 @@ def _launch_kernel(q: torch.Tensor, cent: torch.Tensor, n_tri: int) -> torch.Ten
         raise ValueError(f"bad padded sizes Vp={Vp} Fp={Fp} n_tri={n_tri}")
     if cent.data_ptr() % 16:
         raise ValueError("centroid rows are read as float4 and must be 16-byte aligned")
-    lib = load_library("nearest_centroid")
-    fn = lib.ihmr_nearest_centroid_forward
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = kernel_function("nearest_centroid", "ihmr_nearest_centroid_forward", _FORWARD_ARGS)
     index = torch.empty((N, Vp), dtype=torch.int32, device=q.device)
+    if index.data_ptr() % 16:
+        raise ValueError("the index is written as int4 and must be 16-byte aligned")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), cent.data_ptr(), index.data_ptr(), N, Vp, Fp, n_tri, stream)

@@ -29,6 +29,7 @@ from ihmr_tpu.refine.opt_engine import forward as jax_forward
 from ihmr_tpu_torch.ops import collision as TC
 from ihmr_tpu_torch.ops import exact_collision as K
 from tests.test_collision import icosphere
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 T = lambda x: torch.as_tensor(np.array(x))
 

@@ -26,6 +26,7 @@ from ihmr_tpu_torch.core import axis_angle_to_matrix, flip_hand_pose, orthograph
 from ihmr_tpu_torch.losses import losses as TL
 from ihmr_tpu_torch.mano import layer as torch_layer
 from ihmr_tpu_torch.mano.loader import mirror_mano_model, synthetic_mano_arrays, synthetic_mano_model
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 MANO_FIELDS = ("v_template", "shapedirs", "posedirs", "j_regressor", "lbs_weights", "faces")
 

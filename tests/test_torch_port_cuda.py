@@ -6,7 +6,8 @@ also runs where JAX is not installed; on the GPU machine:
 
 Tolerances: depths 1e-5 absolute, directions 1e-4 where both sides are
 inside, inside signs equal on >= 99.9% of queries (the same fp32 arithmetic
-as the plain version, tie-set sums in another order); nearest-centroid
+as the plain version, tie-set sums in another order); on the adversarial
+cases of ``ihmr_tpu_torch.kernel_cases`` depths equal; nearest-centroid
 indices 100% equal (the same rank arithmetic and tie rules, no sums that
 depend on order); a short refinement on the card and on the CPU within
 2e-4 (the slice test's bound); a short MLP training on both within
@@ -24,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from ihmr_tpu_torch import resolve_device
+from ihmr_tpu_torch import kernel_cases, resolve_device
 from ihmr_tpu_torch.data import make_mlp_inputs, make_opt_inputs
 from ihmr_tpu_torch.device import set_fp32_matmul_precision
 from ihmr_tpu_torch.mano import synthetic_mano_model
@@ -83,6 +84,45 @@ def test_kernel_matches_plain_version(cuda):
     both = (depth > 0) & (ref > 0)
     assert bool(both.any())
     assert float((dirs - ref_dirs)[both].abs().max()) <= 1e-4
+
+
+EXACT_CASES = [case[0] for case in kernel_cases.exact_cases("cpu")]
+NEAREST_CASES = [case[0] for case in kernel_cases.nearest_cases("cpu")]
+
+
+@pytest.mark.parametrize("label", EXACT_CASES)
+def test_kernel_matches_plain_version_on_adversarial_cases(cuda, label):
+    q, tri = next(case[1:] for case in kernel_cases.exact_cases(cuda) if case[0] == label)
+    qp, tp, bounds = K.pad_inputs(q, tri)
+    K.reset_launch_count()
+    depth, dirs = K._launch_kernel(qp, tp, bounds, tri.shape[1])
+    torch.cuda.synchronize()
+    assert K.launch_count == 1
+    ref, ref_dirs, evaluated = K.exact_penetration_depth_reference(qp, tp, bounds, tri.shape[1])
+    assert torch.equal(depth, ref)  # the same best d2, so the same depths and inside signs
+    gap = (dirs - ref_dirs)[(depth > 0) & (ref > 0)].abs()
+    assert gap.numel() == 0 or float(gap.max()) <= 1e-4
+    if label == "pruned after the first tile":
+        assert not bool(evaluated[:, :, 1:].any())
+
+
+def test_kernel_division_rounds_as_ieee(cuda):
+    num, den = kernel_cases.division_operands(cuda)
+    ours, ref = K.kernel_divide(num, den), K._safe_div(num, den)
+    assert torch.equal(ours.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("label", NEAREST_CASES)
+def test_nearest_kernel_matches_plain_version_on_adversarial_cases(cuda, label):
+    q, cent, picks = next(case[1:] for case in kernel_cases.nearest_cases(cuda) if case[0] == label)
+    qp, cp = NC.pad_inputs(q, cent)
+    NC.reset_launch_count()
+    idx = NC._launch_kernel(qp, cp, cent.shape[1])
+    torch.cuda.synchronize()
+    assert NC.launch_count == 1
+    assert torch.equal(idx, NC.nearest_centroid_reference(qp, cp, cent.shape[1]))
+    for n, pick in enumerate(picks or ()):
+        assert bool((idx[n, : q.shape[1]] == pick).all()), (n, idx[n, : q.shape[1]].tolist())
 
 
 def test_wrapper_gradient_matches_cpu(cuda):

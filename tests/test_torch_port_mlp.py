@@ -45,6 +45,7 @@ from ihmr_tpu_torch.refine.opt_engine import OptConfig
 from ihmr_tpu_torch.train import mlp as TT
 from ihmr_tpu_torch.train.stats import LossStat
 from tests.test_torch_port_nearest import jax_tpu_branch
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 B, N_BATCHES, EPOCH = 2, 2, 2
 STAGES = (0, 3, 5)

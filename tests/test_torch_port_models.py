@@ -17,6 +17,7 @@ from ihmr_tpu.models.encoder import InterHandEncoder as FlaxEncoder
 from ihmr_tpu.models.encoder import build_mean_params as jax_mean_params
 from ihmr_tpu_torch.convert import encoder_from_jax
 from ihmr_tpu_torch.models import InterHandEncoder, build_mean_params, get_backbone, init_encoder_weights
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _randomize(tree, rng):

@@ -28,6 +28,7 @@ from ihmr_tpu_torch.mano import synthetic_mano_model
 from ihmr_tpu_torch.refine import OptBatch, OptConfig, compute_losses, opt_default, optimize_batch
 from ihmr_tpu_torch.refine import opt_engine as TE
 from ihmr_tpu_torch.refine import schedule as TS
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 B, EPOCH = 2, 20
 

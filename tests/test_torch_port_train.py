@@ -84,6 +84,7 @@ from ihmr_tpu_torch.train import loops as TLoops
 from ihmr_tpu_torch.train import mlp as TM
 from ihmr_tpu_torch.train import profiling
 from ihmr_tpu_torch.train.stats import OptTimeStat, TimeStat
+from tests.torch_threads import one_torch_thread  # noqa: F401  (the bounds above hold at 1 and 8 threads)
 
 B, SIZE, LR = 4, 64, 1e-4
 T = lambda x: torch.as_tensor(np.array(x))
@@ -149,17 +150,6 @@ def _init_variables(encoder, mean, rng):
         return np.full(s.shape, 1.0 if name.endswith(("['scale']", "['var']")) else 0.0, np.float32)
 
     return jax.tree_util.tree_map_with_path(leaf, dict(shapes))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The port's side works on tiny tensors: one intra-op thread, so that
-    this module does not contend for the cores the suite's other test
-    workers use (the bounds above hold at 1 and at 8 threads)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
