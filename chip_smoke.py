@@ -29,14 +29,24 @@ Phases (each raises on failure; any failure exits non-zero before the last line)
    backward against its formula.
 3. The OPT path at full width: ResNet-50 encoder at 224x224 and the full
    opt_default (4 x 301 Adam steps, save_mid_freq=10) on B=128 hands with the
-   full MANO mesh (778 vertices, 1538 faces). One warm-up run, then a timed
-   run with the kernel launch counts zeroed just before it and read just
-   after. The final pass's depths are recomputed with the plain version.
+   full MANO mesh (778 vertices, 1538 faces), on the default engine (the
+   stage-hoisted decode, as in the JAX package). One warm-up run, then a
+   timed run with the kernel launch counts zeroed just before it and read
+   just after, and its peak device memory. The final pass's depths are
+   recomputed with the plain version. Then the two engines against each
+   other over 4 x 21 steps: at B=2 the hoisted and the full decode
+   (stage_hoist_decode=False) must agree within HOIST_TOL; at B=128 the
+   largest gap, the samples above HOIST_TOL and the stage where each
+   sample first leaves it are printed; each optimize_batch launches
+   exact_collision once with either engine. The shape stage's payload (one
+   decode at 21x the batch) is built alone at B=128 for its peak memory.
 4. The MLP path at full width: run_mlp_pipeline at N=2048 in 16 batches of
    128 with the full mlp_default (240 train steps, 96 selection batches, the
    cascade over 16 batches). A warm-up of one train step, one selection batch
    and one cascade batch, then one timed run with the launch counts zeroed
-   just before it and read just after.
+   just before it and read just after. The run ends in test_mlp_loop's
+   Evaluator (its metric_dict printed); the same cascade is then timed
+   without the Evaluator.
 5. Baseline training at full width (scripts/train_bench.py's
    configuration): ResNet-50 at 224x224, B=64, TrainConfig(total_epoch=1),
    fp32 without TF32, bn_impl="pallas" (bn_stats, K3, in every train-mode
@@ -45,15 +55,24 @@ Phases (each raises on failure; any failure exits non-zero before the last line)
    launches a step), then one eval_step (one K1 launch; its depths again
    through the plain version). The same 20 steps with bn_impl="stock",
    timed. K3's time per step: each BatchNorm input shape of one step,
-   kernel against plain version and torch.var_mean.
-6. Small inputs held against the CPU: optimize_batch at B=2 with a short
-   schedule, pipeline.run_short_mlp (three stages, one epoch, N=4) and
+   kernel against plain version and torch.var_mean. test_baseline_loop on
+   the same batch after the 20 steps (one exact_collision launch).
+6. Evaluation: optimize_loop over 2 raw batches of B=128
+   (make_opt_inputs seeds 0 and 1) with every stage cut to epoch 20 (one
+   exact_collision launch per batch); with the MLP's and the baseline's,
+   each loop's metric_dict is printed and every metric must be finite.
+7. Small inputs held against the CPU: optimize_batch at B=2 with a short
+   schedule, pipeline.run_short_opt_eval (optimize_loop at B=2, 4 x 21
+   steps), pipeline.run_short_mlp (three stages, one epoch, N=4) and
    pipeline.run_short_train (ResNet-18 at 64x64, B=4, two steps), on the
-   card and on the CPU (plain kernel versions) must agree: the MLP's
+   card and on the CPU (plain kernel versions) must agree: the metrics
+   within pipeline.SHORT_EVAL_RTOL; the MLP's
    trained weights, residuals, cached params and losses within
    pipeline.SHORT_MLP_TOL, accept masks equal; the training's step-1
    metrics, running statistics and params and its step-2 loss within
    pipeline.SHORT_TRAIN_TOL.
+
+The run's time in all is printed beside the card's name and power limit.
 
 The next-to-last line is {"kernels": [...]} and the last line
 {"ok": true, "device": {...}}. Exits non-zero without a result when CUDA is
@@ -98,10 +117,40 @@ DEPTH_TOL = 1e-5  # fp32, the same arithmetic on both sides
 DIR_TOL = 1e-4  # tie-set averages summed in another order
 SIGN_AGREEMENT = 0.999
 SMALL_PARAM_TOL = 2e-4  # card vs CPU over a short OPT schedule (the slice test's bound)
+HOIST_TOL = 5e-5  # hoisted vs full decode over 4 x 21 steps (the JAX package's bound between its engines)
+# the JAX package's engine over the full opt_default at B=128, seed 0, fp32 on
+# a CPU (tests/test_torch_port_opt.py's compare_full_schedule): the final mean
+# collision loss, a sanity reference for this run's, not a limit
+JAX_CPU_FINAL_COLLISION = 0.364552
 
 
 def log(*args):
     print(*args, flush=True)
+
+
+def _kernel_modules():
+    from ihmr_tpu_torch.ops import bn_stats, exact_collision, nearest_centroid
+
+    return {"exact_collision": exact_collision, "nearest_centroid": nearest_centroid, "bn_stats": bn_stats}
+
+
+def zero_counts():
+    """Set every kernel's launch count to 0 (just before a path's run)."""
+    torch.cuda.synchronize()
+    for mod in _kernel_modules().values():
+        mod.reset_launch_count()
+
+
+def read_counts():
+    """Every kernel's launch count (just after a path's run)."""
+    torch.cuda.synchronize()
+    return {name: mod.launch_count for name, mod in _kernel_modules().items()}
+
+
+def check_counts(path, counts, **expected):
+    """Raise unless each kernel launched as often as the path should."""
+    if counts != expected:
+        raise AssertionError(f"{path}: kernel launches {counts}, expected {expected}")
 
 
 def phase_card_and_build():
@@ -341,8 +390,6 @@ def phase_main_path(dev):
     from ihmr_tpu_torch.ops.collision import pair_parity_filter
     from ihmr_tpu_torch.pipeline import make_bench_inputs, run_pipeline
 
-    from ihmr_tpu_torch.ops import nearest_centroid as NC
-
     log("OPT path: ResNet-50 224x224 + opt_default (4 x 301 steps) at B=128, full MANO mesh")
     inputs = make_bench_inputs(batch=128, seed=0, arch="resnet50", image_size=224, device=dev)
     log(f"  mesh: {inputs.mano.v_template.shape[0]} vertices, {inputs.mano.faces.shape[0]} faces")
@@ -351,24 +398,24 @@ def phase_main_path(dev):
     torch.cuda.synchronize()
     log(f"  warm-up run: {time.perf_counter() - t0:.2f}s")
 
-    K.reset_launch_count()
-    NC.reset_launch_count()
-    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
     t0 = time.perf_counter()
     out_params, results, pred_params, hand_type = run_pipeline(inputs)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = K.launch_count
+    counts = read_counts()
     B = inputs.images.shape[0]
-    log(f"  timed run: {dt:.3f}s -> {B / dt:.3f} hands/sec; exact_collision launches {launches}, "
-        f"nearest_centroid launches {NC.launch_count} (not on this path)")
+    log(f"  timed run (default engine, stage-hoisted decode): {dt:.3f}s -> {B / dt:.3f} hands/sec; launches "
+        f"{counts}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     # K1 runs once, on the final exact pass: the in-loop collision is the
-    # plain-torch payload path, and NC stays at 0
-    if launches != 1 or NC.launch_count != 0:
-        raise AssertionError("the OPT path did not launch each kernel the expected number of times")
+    # plain-torch payload path; K2 is MLP-only and the encoder's BatchNorm
+    # runs in eval mode (no K3)
+    check_counts("the OPT path", counts, exact_collision=1, nearest_centroid=0, bn_stats=0)
 
     final_coll = float(results["collision_loss"].mean())
-    log(f"  final mean collision loss {final_coll:.5f} (a TPU run of the JAX package gave 0.19499 at seed 0; sanity only)")
+    log(f"  final mean collision loss {final_coll:.5f} (the JAX package's engine in fp32 on a CPU: "
+        f"{JAX_CPU_FINAL_COLLISION} at seed 0; one discrete flip on one sample moves the mean by ~0.1; sanity only)")
     if pred_params.shape != (B, 122) or hand_type.shape != (B, 2):
         raise AssertionError(f"encoder outputs {tuple(pred_params.shape)} {tuple(hand_type.shape)}")
     tensors = dict(results, pred_params=pred_params, hand_type=hand_type, **{f"param_{k}": v for k, v in out_params.items()})
@@ -390,15 +437,62 @@ def phase_main_path(dev):
     log(f"  final-pass depths, kernel vs plain: max |err| {err:.3e} (tol {DEPTH_TOL})")
     if err > DEPTH_TOL:
         raise AssertionError("final-pass depths disagree with the plain version")
-    return launches, B / dt
+    return counts, B / dt
+
+
+def phase_engines(dev):
+    """The stage-hoisted engine against the full decode over 4 x 21 steps."""
+    from ihmr_tpu_torch.data import make_opt_inputs
+    from ihmr_tpu_torch.mano import synthetic_mano_model
+    from ihmr_tpu_torch.ops import exact_collision as K
+    from ihmr_tpu_torch.refine import OptConfig, opt_default, optimize_batch, run_stage
+    from ihmr_tpu_torch.refine.opt_engine import _make_stage_forward
+
+    strategy = tuple(dataclasses.replace(s, epoch=20) for s in opt_default)
+    configs = {hoist: OptConfig(save_mid_freq=10, stage_hoist_decode=hoist) for hoist in (True, False)}
+    mano = synthetic_mano_model(device=dev)
+    for B in (2, 128):
+        params, batch = make_opt_inputs(mano, batch=B, seed=0)
+        outs = {}
+        for hoist, config in configs.items():
+            K.reset_launch_count()
+            outs[hoist], _ = optimize_batch(mano, params, batch, strategy, config)
+            torch.cuda.synchronize()
+            if K.launch_count != 1:
+                raise AssertionError(f"optimize_batch (stage_hoist_decode={hoist}) launched exact_collision "
+                                     f"{K.launch_count} times, not once")
+        gap = torch.stack([(outs[True][k] - outs[False][k]).abs().reshape(B, -1).max(1).values for k in params])
+        gap = gap.max(0).values.cpu()
+        over = [int(i) for i in torch.nonzero(gap > HOIST_TOL).flatten()]
+        log(f"engines, B={B}, 4 x 21 steps: hoisted vs full decode params max |gap| {float(gap.max()):.3e} "
+            f"(tol {HOIST_TOL}); samples above it {len(over)}/{B}; exact_collision once per optimize_batch with both")
+        if B == 2 and float(gap.max()) > HOIST_TOL:
+            raise AssertionError("the hoisted and the full-decode engines disagree on the card")
+        if over:
+            # each stage run by both engines from the same entry params: where a sample first leaves the bound
+            entry = params
+            for st in strategy:
+                ends = {hoist: run_stage(mano, entry, batch, st, config) for hoist, config in configs.items()}
+                g = torch.stack([(ends[True][k] - ends[False][k]).abs().reshape(B, -1).max(1).values for k in params])
+                g = g.max(0).values.cpu()
+                log(f"  stage {'+'.join(st.update_params)} from common entry params: samples above tol "
+                    f"{[i for i in over if float(g[i]) > HOIST_TOL]}, max gap {float(g.max()):.3e}")
+                entry = ends[True]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fwd = _make_stage_forward(mano, opt_default[3], params)
+    torch.cuda.synchronize()
+    log(f"  shape-stage payload at B={B} (one decode of {21 * 2 * B} hands): peak "
+        f"{(torch.cuda.max_memory_allocated() - base) / 2**20:.1f} MiB above the {base / 2**20:.1f} MiB held before, "
+        f"{(torch.cuda.memory_allocated() - base) / 2**20:.1f} MiB kept for the stage")
+    del fwd
 
 
 def phase_mlp_path(dev):
     from ihmr_tpu_torch.data import BatchList
-    from ihmr_tpu_torch.ops import exact_collision as K
-    from ihmr_tpu_torch.ops import nearest_centroid as NC
     from ihmr_tpu_torch.pipeline import MLPBenchInputs, make_mlp_bench_inputs, run_mlp_pipeline
-    from ihmr_tpu_torch.refine import mlp_default
+    from ihmr_tpu_torch.refine import MLP_DEFAULT_LOSS_WEIGHTS, OptConfig, make_cascade_apply, mlp_default
 
     log("MLP path: run_mlp_pipeline, N=2048 in 16 batches of 128, full mlp_default (6 stages, 15 epochs)")
     inputs = make_mlp_bench_inputs(n=2048, batch=128, device=dev)
@@ -411,20 +505,18 @@ def phase_mlp_path(dev):
     torch.cuda.synchronize()
     log(f"  warm-up (one batch, one stage, one epoch): {time.perf_counter() - t0:.2f}s")
 
-    K.reset_launch_count()
-    NC.reset_launch_count()
-    torch.cuda.synchronize()
+    zero_counts()
     t0 = time.perf_counter()
     run = run_mlp_pipeline(inputs, mlp_default, generator=torch.Generator().manual_seed(0))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    k1, k2 = K.launch_count, NC.launch_count
+    counts = read_counts()
     n = inputs.num_data
     sec = run.seconds
     train_rate = steps * B / sec["train"]
     cascade_rate = n / sec["cascade"]
     log(f"  timed run: {dt:.3f}s (warm pass {sec['warm']:.3f}s, training with selection {sec['train']:.3f}s, "
-        f"cascade {sec['cascade']:.3f}s)")
+        f"test_mlp_loop: cascade and Evaluator {sec['cascade']:.3f}s)")
     log(f"  training: {train_rate:.3f} samples/sec ({steps} steps x {B}); cascade: {cascade_rate:.3f} hands/sec")
     for stat in run.stage_stats:
         log(f"  stage {stat['stage']} {'+'.join(mlp_default[stat['stage']].update_params)}: accept "
@@ -432,31 +524,78 @@ def phase_mlp_path(dev):
     log("  (docs/MLP_SOAK.md has a TPU run of the JAX package on the same data; a sanity check, not a limit)")
     n_batches = len(inputs.batches)
     k1_expect = n_batches * (1 + len(mlp_default) + len(mlp_default) + 2)  # warm + selections + cascade
-    log(f"  launches: nearest_centroid {k2} (train steps {steps}), exact_collision {k1} "
-        f"(warm {n_batches} + selection {n_batches * len(mlp_default)} + cascade {n_batches * (len(mlp_default) + 2)} "
-        f"= {k1_expect})")
-    if k2 != steps or k1 != k1_expect:
-        raise AssertionError("the MLP path did not launch each kernel the expected number of times")
-    tensors = {f"cascade_{i}_{k}": v for i, r in enumerate(run.cascade) for k, v in r.items() if v.is_floating_point()}
-    tensors.update({f"cache_{k}": v for k, v in {**run.caches.prev_params, **run.caches.prev_losses}.items()})
+    log(f"  launches: {counts}; expected nearest_centroid = train steps {steps}, exact_collision = "
+        f"warm {n_batches} + selection {n_batches * len(mlp_default)} + cascade {n_batches * (len(mlp_default) + 2)} "
+        f"= {k1_expect}, bn_stats 0")
+    check_counts("the MLP path", counts, exact_collision=k1_expect, nearest_centroid=steps, bn_stats=0)
+    tensors = {f"cache_{k}": v for k, v in {**run.caches.prev_params, **run.caches.prev_losses}.items()}
     bad = [k for k, v in tensors.items() if not bool(torch.isfinite(v).all())]
+    bad += [f"result_{r['data_idx']}_{k}" for r in run.evaluator.pred_results for k, v in r.items()
+            if isinstance(v, np.ndarray) and v.dtype.kind == "f" and not np.isfinite(v).all()]
     stats_ok = all(np.isfinite([s["select_before"], s["select_after"]]).all() for s in run.stage_stats)
-    if bad or not stats_ok or not bool(run.caches.exists.all()):
+    if bad or not stats_ok or not bool(run.caches.exists.all()) or len(run.evaluator.pred_results) != n:
         raise AssertionError(f"MLP outputs not finite or not cached: {bad[:5]}")
-    log(f"  all {len(tensors)} outputs finite, all {n} samples cached")
-    return k1, k2, train_rate, cascade_rate
+    log(f"  all {len(tensors)} cached tensors and the {n} Evaluator entries finite, all {n} samples cached")
+    md = _check_metrics("test_mlp_loop", run.evaluator)
+    if md != run.metrics:
+        raise AssertionError("run_mlp_pipeline's metrics are not its Evaluator's")
+
+    cascade = make_cascade_apply(inputs.mano, mlp_default, dict(MLP_DEFAULT_LOSS_WEIGHTS), OptConfig())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for batch in inputs.batches:
+            cascade(run.subnets, batch)
+    torch.cuda.synchronize()
+    bare = time.perf_counter() - t0
+    log(f"  the same cascade without the Evaluator: {bare:.3f}s -> {n / bare:.3f} hands/sec "
+        f"(with it: {sec['cascade']:.3f}s -> {cascade_rate:.3f} hands/sec)")
+    return counts, train_rate, cascade_rate, md
+
+
+def _check_metrics(label, evaluator):
+    """Print an Evaluator's metric_dict; every metric must be finite."""
+    md = evaluator.metric_dict()
+    log(f"  {label} metric_dict over {len(evaluator.pred_results)} samples: "
+        + ", ".join(f"{k} {v:.6f}" for k, v in md.items()))
+    if not all(np.isfinite(v) for v in md.values()):
+        raise AssertionError(f"{label}: non-finite metrics {dict(md)}")
+    return dict(md)
+
+
+def phase_opt_eval(dev):
+    """optimize_loop over two raw batches of B=128, stages cut to epoch 20."""
+    from ihmr_tpu_torch.data import make_opt_inputs, opt_raw_batch
+    from ihmr_tpu_torch.mano import synthetic_mano_model
+    from ihmr_tpu_torch.refine import OptConfig, opt_default
+    from ihmr_tpu_torch.train import optimize_loop
+
+    B = 128
+    log(f"evaluation: optimize_loop over 2 raw batches of B={B} (make_opt_inputs seeds 0 and 1), opt_default "
+        "stages cut to epoch 20")
+    mano = synthetic_mano_model(device=dev)
+    raws = [opt_raw_batch(*make_opt_inputs(mano, batch=B, seed=s), index_offset=B * s) for s in (0, 1)]
+    strategy = tuple(dataclasses.replace(s, epoch=20) for s in opt_default)
+    zero_counts()
+    t0 = time.perf_counter()
+    evaluator = optimize_loop(mano, raws, None, strategy, OptConfig(save_mid_freq=10))
+    counts = read_counts()
+    log(f"  {time.perf_counter() - t0:.3f}s; launches {counts} (exact_collision expected {len(raws)})")
+    check_counts("optimize_loop", counts, exact_collision=len(raws), nearest_centroid=0, bn_stats=0)
+    if len(evaluator.pred_results) != B * len(raws):
+        raise AssertionError(f"optimize_loop's Evaluator holds {len(evaluator.pred_results)} samples")
+    return counts, _check_metrics("optimize_loop", evaluator)
 
 
 def phase_train_path(dev):
     import tempfile
 
     from ihmr_tpu_torch.models.resnet import BatchNorm
-    from ihmr_tpu_torch.ops import bn_stats as K3
     from ihmr_tpu_torch.ops import exact_collision as K
-    from ihmr_tpu_torch.ops import nearest_centroid as NC
     from ihmr_tpu_torch.ops.collision import pair_parity_filter
     from ihmr_tpu_torch.pipeline import make_train_bench_inputs, run_train_pipeline
-    from ihmr_tpu_torch.train import eval_step
+    from ihmr_tpu_torch.data import baseline_raw_batch
+    from ihmr_tpu_torch.train import eval_step, test_baseline_loop
 
     log(f"baseline training: ResNet-50 224x224, B=64, {TRAIN_STEPS} steps of TrainConfig(total_epoch=1), "
         "fp32 without TF32, bn_impl=pallas (K3)")
@@ -474,26 +613,23 @@ def phase_train_path(dev):
 
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as tmp:
-        for mod in (K3, K, NC):
-            mod.reset_launch_count()
-        torch.cuda.synchronize()
+        zero_counts()
         run = run_train_pipeline(inputs, TRAIN_STEPS, checkpoints_dir=tmp, evaluate=False)
-        k3, k2, k1 = K3.launch_count, NC.launch_count, K.launch_count
+        step_counts = read_counts()
         saved = sorted(os.listdir(tmp))
     ms = run.step_seconds / TRAIN_STEPS * 1e3
     log(f"  {TRAIN_STEPS} steps: {ms:.3f} ms/step -> {B / ms * 1e3:.3f} images/sec (host clock over the steps, "
         f"each ending in a host read of its losses; the checkpoint write excluded); peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; checkpoints {saved}")
     log(f"  total loss {run.total_loss[0]:.5f} -> {run.total_loss[-1]:.5f}")
-    log(f"  launches over the steps: bn_stats {k3} (expected {len(bns)} x {TRAIN_STEPS}), nearest_centroid {k2}, "
-        f"exact_collision {k1}")
-    if len(bns) != 53 or k3 != 53 * TRAIN_STEPS or k2 != 0 or k1 != 0:
-        raise AssertionError("the training steps did not launch each kernel the expected number of times")
+    log(f"  launches over the steps: {step_counts} (bn_stats expected {len(bns)} x {TRAIN_STEPS})")
+    if len(bns) != 53:
+        raise AssertionError(f"ResNet-50 holds {len(bns)} BatchNorms, not 53")
+    check_counts("the training steps", step_counts, exact_collision=0, nearest_centroid=0, bn_stats=53 * TRAIN_STEPS)
 
-    K.reset_launch_count()
+    zero_counts()
     metrics, outputs = eval_step(inputs.state, inputs.batch, inputs.mano_right, inputs.mano_left, inputs.config)
-    torch.cuda.synchronize()
-    eval_k1 = K.launch_count
+    eval_counts = read_counts()
     rv, lv = outputs["pred_right_hand_verts"], outputs["pred_left_hand_verts"]
     faces_r, faces_l = inputs.mano_right.faces, inputs.mano_left.faces
     q = torch.cat([rv, lv])
@@ -503,11 +639,23 @@ def phase_train_path(dev):
     ref = ref[:, : q.shape[1]]
     ref = pair_parity_filter(torch.cat([ref[:B], ref[B:]], dim=1), rv, lv, faces_r, faces_l)
     err = float((ref - outputs["collision_loss_origin_scale"]).abs().max())
-    log(f"  eval step: exact_collision launches {eval_k1}; depths kernel vs plain max |err| {err:.3e} "
+    log(f"  eval step: launches {eval_counts}; depths kernel vs plain max |err| {err:.3e} "
         f"(tol {DEPTH_TOL}); inside vertices {int((ref > 0).sum())}; "
         + ", ".join(f"{k} {float(v):.5f}" for k, v in metrics.items()))
-    if eval_k1 != 1 or err > DEPTH_TOL:
-        raise AssertionError("the eval step's exact collision disagrees or was not launched once")
+    check_counts("the eval step", eval_counts, exact_collision=1, nearest_centroid=0, bn_stats=0)
+    if err > DEPTH_TOL:
+        raise AssertionError("the eval step's exact collision disagrees with the plain version")
+    zero_counts()
+    evaluator = test_baseline_loop(
+        inputs.state, [baseline_raw_batch(inputs.batch)], None, inputs.mano_right, inputs.mano_left, inputs.config
+    )
+    loop_counts = read_counts()
+    log(f"  test_baseline_loop over the batch: launches {loop_counts} (exact_collision expected 1; BatchNorm in "
+        "eval mode)")
+    check_counts("test_baseline_loop", loop_counts, exact_collision=1, nearest_centroid=0, bn_stats=0)
+    if len(evaluator.pred_results) != B:
+        raise AssertionError(f"test_baseline_loop's Evaluator holds {len(evaluator.pred_results)} samples")
+    baseline_md = _check_metrics("test_baseline_loop", evaluator)
     buffers = {k: v for k, v in inputs.state.encoder.state_dict().items() if k.endswith(("running_mean", "running_var"))}
     bad = [k for k, v in buffers.items() if not bool(torch.isfinite(v).all())]
     bad += [k for k, v in metrics.items() if not bool(torch.isfinite(v).all())]
@@ -526,7 +674,9 @@ def phase_train_path(dev):
     del stock, stock_run
     torch.cuda.empty_cache()
 
-    return dict(k3=k3, k1=eval_k1, ms_per_step=ms, stock_ms_per_step=stock_ms, k3_step=bn_step_times(dev, step_shapes))
+    train_counts = {name: step_counts[name] + eval_counts[name] for name in step_counts}
+    return dict(counts=train_counts, loop_counts=loop_counts, baseline_md=baseline_md, ms_per_step=ms,
+                stock_ms_per_step=stock_ms, k3_step=bn_step_times(dev, step_shapes))
 
 
 def bn_step_times(dev, step_shapes):
@@ -575,6 +725,18 @@ def phase_small_input(dev):
         raise AssertionError("the card and the CPU disagree on a small input")
 
 
+def phase_small_eval(dev):
+    from ihmr_tpu_torch.pipeline import SHORT_EVAL_RTOL, run_short_opt_eval, short_eval_gaps
+
+    gpu, cpu = run_short_opt_eval(dev), run_short_opt_eval("cpu")
+    gaps = short_eval_gaps(gpu, cpu)
+    log(f"small OPT evaluation (optimize_loop, 2 batches of B=2, 4 x 21 steps), card vs CPU metric_dict: "
+        + ", ".join(f"{k} {gpu[k]:.6f} vs {cpu[k]:.6f} (rel gap {v:.3e})" for k, v in gaps.items())
+        + f"; tol {SHORT_EVAL_RTOL} relative")
+    if set(gpu) != set(cpu) or any(v > SHORT_EVAL_RTOL for v in gaps.values()):
+        raise AssertionError("the card and the CPU disagree on a small OPT evaluation")
+
+
 def phase_small_mlp(dev):
     from ihmr_tpu_torch.pipeline import SHORT_MLP_TOL, run_short_mlp, short_mlp_gaps
 
@@ -607,43 +769,55 @@ def main():
         sys.exit(1)
     from ihmr_tpu_torch.device import resolve_device, set_fp32_matmul_precision
 
+    t_start = time.perf_counter()
     dev = resolve_device("cuda")
     set_fp32_matmul_precision()
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     smi = phase_card_and_build()
     k1, k2 = phase_kernels(dev)
     k3_err = phase_bn_kernel(dev)
-    opt_k1, _hands_per_sec = phase_main_path(dev)
-    mlp_k1, mlp_k2, _train_rate, _cascade_rate = phase_mlp_path(dev)
+    opt_counts, _hands_per_sec = phase_main_path(dev)
+    phase_engines(dev)
+    mlp_counts, _train_rate, _cascade_rate, mlp_md = phase_mlp_path(dev)
     train = phase_train_path(dev)
+    opt_eval_counts, opt_eval_md = phase_opt_eval(dev)
+    log("metric_dict of the three evaluation loops: " + json.dumps(
+        {"optimize_loop": opt_eval_md, "test_baseline_loop": train["baseline_md"], "test_mlp_loop": mlp_md}))
     phase_small_input(dev)
+    phase_small_eval(dev)
     phase_small_mlp(dev)
     phase_small_train(dev)
 
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all, kernel builds included, on {smi}")
     print(smi, flush=True)
-    # each path's counts were zeroed before its own timed run; "launches" is
-    # their sum and "launches_by_path" keeps them apart. K1's and K2's times
-    # are one launch at the main path's shape; K3's are the sum over the 53
-    # launches of one train step ("ms_basis"). "ms" is device time alone.
+    # every kernel's count was zeroed just before each path's run and read
+    # just after it; "launches" is their sum and "launches_by_path" keeps them
+    # apart (opt: the timed OPT run; opt_eval: optimize_loop; mlp: the timed
+    # MLP run; train: the 20 train steps and one eval_step; baseline_eval:
+    # test_baseline_loop). K1's and
+    # K2's times are one launch at the main path's shape; K3's are the sum
+    # over the 53 launches of one train step ("ms_basis"). "ms" is device
+    # time alone.
+    by_path = dict(opt=opt_counts, opt_eval=opt_eval_counts, mlp=mlp_counts, train=train["counts"],
+                   baseline_eval=train["loop_counts"])
     kernels = [
         dict(name="exact_collision", source="ihmr_tpu_torch/csrc/exact_collision.cu",
-             replaces="ihmr_tpu/ops/pallas_collision.py:133",
-             by_path=dict(opt=opt_k1, mlp=mlp_k1, train=train["k1"]), library_ms=None,
+             replaces="ihmr_tpu/ops/pallas_collision.py:133", library_ms=None,
              ms_basis="device time of one launch at B=128 (both directions) with a cold L2, CUDA graph replay; "
                       "ms_with_host: CUDA events around one wrapper call", **k1),
         dict(name="nearest_centroid", source="ihmr_tpu_torch/csrc/nearest_centroid.cu",
-             replaces="ihmr_tpu/ops/pallas_collision.py:351",
-             by_path=dict(opt=0, mlp=mlp_k2, train=0), library_ms=None,
+             replaces="ihmr_tpu/ops/pallas_collision.py:351", library_ms=None,
              ms_basis="device time of one launch at B=128 (both directions) with a cold L2, CUDA graph replay; "
                       "ms_with_host: CUDA events around one wrapper call", **k2),
         dict(name="bn_stats", source="ihmr_tpu_torch/csrc/bn_stats.cu", replaces="ihmr_tpu/ops/pallas_bn.py:39",
-             by_path=dict(opt=0, mlp=0, train=train["k3"]), max_abs_err=k3_err,
+             max_abs_err=k3_err,
              ms_basis="device time with a cold L2, summed over the 53 launches of one ResNet-50 train step "
                       "at B=64", **train["k3_step"]),
     ]
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": "cuda", "source": k["source"], "replaces": k["replaces"],
-         "launches": sum(k["by_path"].values()), "launches_by_path": k["by_path"], "max_abs_err": k["max_abs_err"],
+         "launches": sum(c[k["name"]] for c in by_path.values()),
+         "launches_by_path": {path: c[k["name"]] for path, c in by_path.items()}, "max_abs_err": k["max_abs_err"],
          "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
          "library_ms": k["library_ms"], "ms_basis": k["ms_basis"],
          **({"ms_with_host": k["ms_with_host"]} if "ms_with_host" in k else {})}

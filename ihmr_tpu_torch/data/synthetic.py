@@ -14,13 +14,16 @@ at zero and no snapshot is ever accepted).
 seeded stand-in for the cached 1024-d image feature; ``make_baseline_batch``
 builds a baseline training batch (the ground truth of ``generate`` plus
 seeded Gaussian images, as ``scripts/train_bench.py`` does); ``BatchList``
-replays pre-built batches as the loader of the MLP and baseline loops.
+replays pre-built batches as the loader of the MLP and baseline loops;
+``opt_raw_batch`` and ``baseline_raw_batch`` turn batches into the raw
+dataset dicts that ``optimize_loop`` and ``test_baseline_loop`` read.
 
 Not ported yet: the interlocked, grazing and single-hand variants.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Tuple
 
 import numpy as np
@@ -180,3 +183,40 @@ class BatchList(list):
 
     def set_epoch(self, epoch: int) -> None:
         pass
+
+
+def _host(x: torch.Tensor) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+def opt_raw_batch(params: ParamDict, batch: OptBatch, index_offset: int = 0) -> Dict[str, np.ndarray]:
+    """``make_opt_inputs``' (params, OptBatch) as a raw OPT-dataset batch:
+    numpy arrays under the keys ``train.loops._to_opt_batch`` reads, with
+    sample indices index_offset .. index_offset + B - 1."""
+    n = batch.hand_type_array.shape[0]
+    pose = torch.cat([params["right_orient"], params["right_pose"], params["left_orient"], params["left_pose"]], -1)
+    raw = dict(
+        init_cam=params["cam"],
+        init_pose_params=pose,
+        init_shape_params=torch.cat([params["right_shape"], params["left_shape"]], -1),
+        init_hand_trans=params["trans"],
+        mano_pose=batch.gt_pose_params,
+        mano_betas=batch.gt_shape_params,
+        **{k: getattr(batch, k) for k in (
+            "hand_type_array", "hand_type_valid", "joints_2d", "joints_3d", "mano_params_weight", "hand_trans",
+            "init_joints_2d", "init_joints_3d", "init_hand_trans_j",
+        )},
+    )
+    out = {k: _host(v) for k, v in raw.items()}
+    out["index"] = np.arange(index_offset, index_offset + n)
+    return out
+
+
+def baseline_raw_batch(batch, index_offset: int = 0) -> Dict[str, np.ndarray]:
+    """A BaselineBatch as a raw baseline-dataset batch: numpy arrays under
+    the keys ``train.loops._to_baseline_batch`` reads, with sample indices
+    index_offset .. index_offset + B - 1."""
+    names = dict(gt_pose_params="mano_pose", gt_shape_params="mano_betas")
+    out = {names.get(f.name, f.name): _host(getattr(batch, f.name)) for f in dataclasses.fields(batch)}
+    out["index"] = np.arange(index_offset, index_offset + batch.img.shape[0])
+    return out

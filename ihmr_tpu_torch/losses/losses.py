@@ -120,19 +120,22 @@ def shape_residual_loss(pred_shape: torch.Tensor, init_shape: torch.Tensor) -> t
     return (pred_shape - init_shape).abs().mean()
 
 
-def finger_reg_loss(joints_3d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Planarity/curl prior on each finger's 4-joint chain.
-
-    With bone vectors f0, f1, f2: C1 = f2 . (f0 x f1), C2 = (f0 x f1) .
-    (f1 x f2); loss = |C1| - min(0, C2), summed over the 10 fingers."""
+def finger_terms(joints_3d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each finger's 4-joint chain -> (C1, C2), (B, 10) each: with bone
+    vectors f0, f1, f2, C1 = f2 . (f0 x f1) and C2 = (f0 x f1) . (f1 x f2)."""
     B = joints_3d.shape[0]
     chains = joints_3d[:, FINGER_JOINT_IDXS, :].reshape(B, 10, 4, 3)
     bones = chains[:, :, :3, :] - chains[:, :, 1:, :]  # (B, 10, 3, 3)
     f0, f1, f2 = bones[:, :, 0], bones[:, :, 1], bones[:, :, 2]
     c01 = torch.linalg.cross(f0, f1)
     c12 = torch.linalg.cross(f1, f2)
-    C1 = (f2 * c01).sum(-1)
-    C2 = (c01 * c12).sum(-1)
+    return (f2 * c01).sum(-1), (c01 * c12).sum(-1)
+
+
+def finger_reg_loss(joints_3d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Planarity/curl prior on each finger's 4-joint chain:
+    loss = |C1| - min(0, C2) (``finger_terms``), summed over the 10 fingers."""
+    C1, C2 = finger_terms(joints_3d)
     loss = C1.abs() - torch.clamp(C2, max=0.0)  # (B, 10)
     per_sample = loss.sum(dim=1)
     return per_sample.mean(), per_sample

@@ -12,7 +12,8 @@ the measured work. Weights are random from a seed.
 MLP (the shapes and seeds of ``scripts/mlp_soak.py``): N=2048 synthetic
 samples in 16 batches of 128 (``make_mlp_inputs(seed=100 + i)``), the warm
 pass, the full ``mlp_default`` stage training (6 stages, 15 epochs x 16
-batches = 240 train steps) and the trained cascade over every batch.
+batches = 240 train steps) and ``test_mlp_loop``, the trained cascade over
+every batch ending in an ``Evaluator``.
 
 Baseline training (the configuration of ``scripts/train_bench.py``):
 ResNet-50 at 224x224, B=64, ``TrainConfig()`` (lr 1e-4, cosine decay,
@@ -35,8 +36,15 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ihmr_tpu_torch.data.synthetic import BatchList, make_baseline_batch, make_mlp_inputs, make_opt_inputs
+from ihmr_tpu_torch.data.synthetic import (
+    BatchList,
+    make_baseline_batch,
+    make_mlp_inputs,
+    make_opt_inputs,
+    opt_raw_batch,
+)
 from ihmr_tpu_torch.device import DeviceLike, resolve_device, set_fp32_matmul_precision
+from ihmr_tpu_torch.eval import Evaluator
 from ihmr_tpu_torch.mano.loader import mirror_mano_model, synthetic_mano_model
 from ihmr_tpu_torch.mano.model import ManoModel
 from ihmr_tpu_torch.models.encoder import InterHandEncoder, SubNetwork, build_mean_params, init_encoder_weights
@@ -132,8 +140,9 @@ class MLPRun:
     subnets: List[SubNetwork]  # one trained network per stage
     caches: MLPCaches
     stage_stats: List[Dict]
-    cascade: List[Dict[str, torch.Tensor]]  # per-batch cascade results
-    seconds: Dict[str, float]  # host-clock time of "warm", "train" and "cascade"
+    evaluator: Evaluator  # test_mlp_loop's, over every sample
+    metrics: Dict[str, float]  # the evaluator's metric_dict
+    seconds: Dict[str, float]  # host-clock time of "warm", "train" and "cascade" (Evaluator.update included)
 
 
 def _sync(device: torch.device) -> None:
@@ -147,9 +156,10 @@ def run_mlp_pipeline(
     generator: Optional[torch.Generator] = None,
     print_freq: int = 10,
 ) -> MLPRun:
-    """Warm pass, stage-wise training (with its selection passes) and the
-    cascade over every batch; each phase timed on the host clock up to a
-    device synchronisation."""
+    """Warm pass, stage-wise training (with its selection passes) and
+    ``test_mlp_loop``, the cascade over every batch ending in an Evaluator
+    (whose metrics the run keeps); each phase timed on the host clock up to
+    a device synchronisation."""
     config = OptConfig()
     dev = inputs.mano.device
     caches = MLPCaches(inputs.num_data, device=dev)
@@ -167,10 +177,43 @@ def run_mlp_pipeline(
     _sync(dev)
     seconds["train"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    cascade = test_mlp_loop(inputs.mano, strategy, subnets, inputs.batches, config)
+    evaluator = test_mlp_loop(inputs.mano, strategy, subnets, inputs.batches, config)
     _sync(dev)
     seconds["cascade"] = time.perf_counter() - t0
-    return MLPRun(subnets=subnets, caches=caches, stage_stats=stage_stats, cascade=cascade, seconds=seconds)
+    return MLPRun(
+        subnets=subnets, caches=caches, stage_stats=stage_stats, evaluator=evaluator,
+        metrics=dict(evaluator.metric_dict()), seconds=seconds,
+    )
+
+
+# A small OPT evaluation that holds the card against the CPU (chip_smoke.py
+# and tests/test_torch_port_cuda.py): optimize_loop over 2 raw batches of
+# B=2 (make_opt_inputs seeds 0 and 1), every opt_default stage cut to epoch
+# 20, save_mid_freq=10. The card-vs-CPU check of a short refinement holds
+# params within 2e-4 and collision losses within 1e-3 relative; each metric
+# is a mean of joint errors or depths that move with the params by less
+# than that (a joint moves by at most ~0.1 x a param gap, against errors of
+# ~1e-2), and collision_auc moves by 1/(2 x 1556 x 49) ~ 7e-6 for each
+# depth that crosses one of its 50 thresholds. So every metric of
+# metric_dict must agree within 1e-3 relative.
+SHORT_EVAL_RTOL = 1e-3
+
+
+def run_short_opt_eval(device: DeviceLike = None) -> Dict[str, float]:
+    """The small OPT evaluation on ``device`` -> its ``metric_dict``."""
+    from ihmr_tpu_torch.train.loops import optimize_loop
+
+    dev = resolve_device(device)
+    mano = synthetic_mano_model(device=dev)
+    raws = [opt_raw_batch(*make_opt_inputs(mano, batch=2, seed=s), index_offset=2 * s) for s in range(2)]
+    strategy = tuple(dataclasses.replace(s, epoch=20) for s in opt_default)
+    evaluator = optimize_loop(mano, raws, None, strategy, OptConfig(save_mid_freq=10), is_main=False)
+    return dict(evaluator.metric_dict())
+
+
+def short_eval_gaps(a: Dict[str, float], b: Dict[str, float]) -> Dict[str, float]:
+    """Two ``run_short_opt_eval`` results -> each metric's relative gap."""
+    return {k: abs(a[k] - v) / max(abs(v), 1e-12) for k, v in b.items()}
 
 
 # A small MLP run that holds the card against the CPU (chip_smoke.py and

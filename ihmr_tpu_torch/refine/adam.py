@@ -1,4 +1,5 @@
-"""Adam with bias correction, as the JAX package's engines compute it.
+"""Adam with bias correction, as the JAX package's engines compute it, and
+the OPT engine's momentum SGD.
 
 One state per optimised set of tensors: first and second moments start at
 zero and the step count t runs on across calls (a stage of the OPT engine,
@@ -50,4 +51,26 @@ class Adam:
             self.v[k] = B2 * self.v[k] + (1 - B2) * grads[k] ** 2
             m_hat, denom = self.m[k] / c1, torch.sqrt(self.v[k] / c2) + EPS
             out[k] = p - (lr * (m_hat / denom) if self.lr_last else lr * m_hat / denom)
+        return out
+
+
+SGD_MOMENTUM = 0.9
+
+
+class SGD:
+    """SGD with momentum 0.9 and no dampening (torch's, and the JAX OPT
+    engine's ``optimizer="sgd"``): buf = 0.9 buf + g, p = p - lr * buf, with
+    buf starting at zero, so the first step takes buf = g exactly."""
+
+    def __init__(self, params: Dict[str, torch.Tensor]):
+        self.buf = {k: torch.zeros_like(x) for k, x in params.items()}
+
+    @torch.no_grad()
+    def step(
+        self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor], lr: float
+    ) -> Dict[str, torch.Tensor]:
+        out = {}
+        for k, p in params.items():
+            self.buf[k] = SGD_MOMENTUM * self.buf[k] + grads[k]
+            out[k] = p - lr * self.buf[k]
         return out

@@ -1,14 +1,15 @@
 """IHMR-OPT: per-sample collision-aware test-time refinement (port of
 ihmr_tpu/refine/opt_engine.py, engine semantics of ``_run_one_stage_hoisted``).
 
-For each strategy stage: ``epoch + 1`` Adam steps on the stage's parameter
-groups, fresh moments per stage. Steps are grouped in snapshot blocks of
-``save_mid_freq`` steps; only the first step of a block (a snapshot step)
-evaluates the filter/select losses: the first block of a stage sets the
-filter bars (origin * (1 + (pct + 0.1)/100)) and the best params
-unconditionally; later snapshots replace a sample's best when every filter
-loss is under its bar and the select loss is strictly lower (the earliest
-minimum wins). The other steps of a block only compute gradients and Adam.
+For each strategy stage: ``epoch + 1`` optimizer steps (Adam, or SGD with
+momentum 0.9) on the stage's parameter groups, fresh state per stage.
+Steps are grouped in snapshot blocks of ``save_mid_freq`` steps; only the
+first step of a block (a snapshot step) evaluates the filter/select losses:
+the first block of a stage sets the filter bars (origin * (1 + (pct +
+0.1)/100)) and the best params unconditionally; later snapshots replace a
+sample's best when every filter loss is under its bar and the select loss
+is strictly lower (the earliest minimum wins). The other steps of a block
+only compute gradients and the optimizer's update.
 
 In-loop collision is the block-frozen nearest-face payload: every
 ``reselect_every_blocks`` blocks (a superblock) the current mesh is decoded
@@ -19,29 +20,55 @@ of the live queries against the frozen triangles. 301 steps at
 save_mid_freq=10 are 30 blocks in 15 superblocks plus a 1-step tail block
 with its own payload.
 
-The final pass recomputes every loss at the default weights with the exact
-collision kernel (ops/exact_collision.py) ANDed with the ray-parity filter.
+With ``OptConfig.stage_hoist_decode`` (the default, as in the JAX package)
+each stage's forward is partially evaluated against the groups it keeps
+frozen (``_make_stage_forward``): a trans/cam stage decodes once and adds
+trans per step, an orient stage rotates an identity-orient decode about the
+rest root, a shape stage contracts a 21x-batch affine basis, and a pose
+stage reuses the betas-only rest parts and the root rotation. These are
+exact, so ``stage_hoist_decode=False`` (the full decode at every step) gives
+the same results up to fp32 rounding. The payload rebuilds use the stage's
+forward too.
 
-Adam note: the reference optimises the batch-MEAN loss; Adam's update is
-invariant to that uniform 1/B gradient scale (up to eps), so per-sample
-trajectories do not depend on the batch size.
+The final pass recomputes every loss at the default weights with the full
+decode and the exact collision kernel (ops/exact_collision.py) ANDed with
+the ray-parity filter.
 
-Not ported yet (OptConfig raises if they are asked for): SGD, the
-stage-hoisted decode payloads, the fused/scan engines, escalation, the grid, 2-level and
-K-candidate backends, parity-alternating queries and per-step reselection.
+Optimizer note: the reference optimises the batch-MEAN loss; Adam's update
+is invariant to that uniform 1/B gradient scale (up to eps), so per-sample
+trajectories do not depend on the batch size. SGD's are scaled by 1/B, as
+in the JAX package.
+
+Not ported yet (OptConfig or optimize_batch raises if they are asked for):
+escalation, the grid, 2-level and K-candidate backends, parity-alternating
+queries, per-step reselection and unfrozen payload positions. Without the
+hoist, the JAX package runs the block engine above only for Adam on a
+strategy whose stages share epoch, filter and select losses (its fused
+engine); otherwise it runs per-stage programs that reselect faces at every
+step, so ``stage_hoist_decode=False`` with SGD or with such a strategy
+raises until per-step reselection is ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from ihmr_tpu_torch.core.projection import orthographic_project
 from ihmr_tpu_torch.losses import losses as L
-from ihmr_tpu_torch.mano.layer import HandParams, two_hand_decode_mirrored
+from ihmr_tpu_torch.mano.layer import (
+    HandParams,
+    two_hand_decode_from_identity,
+    two_hand_decode_from_pose_payload,
+    two_hand_decode_from_shape_affine,
+    two_hand_decode_mirrored,
+    two_hand_identity_orient_payload,
+    two_hand_pose_payload,
+    two_hand_shape_affine_payload,
+)
 from ihmr_tpu_torch.mano.model import ManoModel
 from ihmr_tpu_torch.ops.collision import (
     collision_loss,
@@ -51,7 +78,7 @@ from ihmr_tpu_torch.ops.collision import (
     pair_indices,
     pair_tris_at,
 )
-from ihmr_tpu_torch.refine.adam import Adam
+from ihmr_tpu_torch.refine.adam import SGD, Adam
 from ihmr_tpu_torch.refine.schedule import OPT_DEFAULT_LOSS_WEIGHTS, Stage
 
 ParamDict = Dict[str, torch.Tensor]
@@ -79,10 +106,11 @@ class OptConfig:
     """The JAX package's OptConfig: same field names and defaults.
 
     Fields whose code paths are not ported raise when set to a non-default
-    value (see ``_UNPORTED``). Ported: save_mid_freq,
-    robustifier, collision_backend ("auto" / "pallas": the exact kernel),
-    loop_collision_subsample, loop_collision_face_subsample,
-    reselect_every_blocks, loop_collision_margin, exact_parity_filter."""
+    value (see ``_UNPORTED``). Ported: optimizer ("adam" / "sgd"),
+    save_mid_freq, robustifier, collision_backend ("auto" / "pallas": the
+    exact kernel), loop_collision_subsample, loop_collision_face_subsample,
+    reselect_every_blocks, loop_collision_margin, exact_parity_filter,
+    stage_hoist_decode."""
 
     optimizer: str = "adam"
     save_mid_freq: int = 10
@@ -116,6 +144,13 @@ class OptConfig:
                     f"OptConfig.{name}={getattr(self, name)!r}: that path is not ported "
                     f"(only the default {defaults[name]!r} is)"
                 )
+        if self.optimizer not in ("adam", "sgd"):
+            raise ValueError(f"optimizer={self.optimizer!r}: 'adam' or 'sgd'")
+        if self.optimizer == "sgd" and not self.stage_hoist_decode:
+            raise NotImplementedError(
+                "optimizer='sgd' with stage_hoist_decode=False: the JAX package runs its per-stage "
+                "programs (per-step face reselection) there, which are not ported"
+            )
         if self.collision_backend not in ("auto", "pallas"):
             raise NotImplementedError(
                 f"collision_backend={self.collision_backend!r} is not ported; "
@@ -128,11 +163,10 @@ class OptConfig:
 
 
 # fields whose non-default values select paths this port does not have yet:
-# SGD, the K-candidate backend, the fast-off / per-step reselection / unfrozen
+# the K-candidate backend, the fast-off / per-step reselection / unfrozen
 # in-loop variants, the 2-level hierarchy, parity-alternating queries, the
-# grid backend and escalation, and the fused (non-hoisted) engine
+# grid backend and escalation
 _UNPORTED = (
-    "optimizer",
     "num_candidates",
     "loop_collision_fast",
     "loop_collision_cluster",
@@ -146,7 +180,6 @@ _UNPORTED = (
     "grid_num_candidates",
     "grid_res",
     "grid_focus",
-    "stage_hoist_decode",
 )
 
 
@@ -205,6 +238,7 @@ def compute_losses(
     in_loop: bool = False,
     coll_tris: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
     outputs=None,
+    fwd_fn: Optional[Callable[[ParamDict], Tuple[torch.Tensor, ...]]] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """All OPT losses -> (total scalar, aux dict).
 
@@ -217,8 +251,12 @@ def compute_losses(
     In the loop, ``coll_tris`` = (tri_r, tri_l, scale) is the block-frozen
     payload (``_lazy_coll_payload``); a stage whose collision weight is 0
     skips collision entirely. Outside the loop the exact kernel runs on the
-    full meshes. ``outputs`` reuses a forward already computed for ``p``."""
-    rv, lv, joints3d, joints2d = outputs if outputs is not None else forward(model, p)
+    full meshes. ``outputs`` reuses a forward already computed for ``p``;
+    ``fwd_fn`` (params -> the same four outputs) replaces the full decode
+    with a stage's hoisted forward (``_make_stage_forward``)."""
+    if outputs is None:
+        outputs = fwd_fn(p) if fwd_fn is not None else forward(model, p)
+    rv, lv, joints3d, joints2d = outputs
     aux: Dict[str, torch.Tensor] = {}
 
     if not in_loop:
@@ -300,13 +338,15 @@ _FILTER_KEYS = {
 
 
 @torch.no_grad()
-def _lazy_coll_payload(model: ManoModel, p: ParamDict, config: OptConfig):
+def _lazy_coll_payload(model: ManoModel, p: ParamDict, config: OptConfig, fwd_fn=None):
     """The block-frozen collision payload at the current params:
     (tri_r, tri_l, scale) — each stride-``loop_collision_subsample`` query's
     nearest face of the other hand's stride-``loop_collision_face_subsample``
     face set (Morton order makes that a uniform sub-mesh of the FULL vertex
-    array), as positions, plus the AABB normalisation scale."""
-    rv, lv, _, _ = forward(model, p)
+    array), as positions, plus the AABB normalisation scale. The meshes come
+    from ``fwd_fn`` when given (the stage's hoisted forward), else from the
+    full decode."""
+    rv, lv, _, _ = fwd_fn(p) if fwd_fn is not None else forward(model, p)
     fsub = config.loop_collision_face_subsample
     faces_r = model.faces[::fsub]
     faces_l = model.faces.flip(-1)[::fsub]
@@ -314,6 +354,75 @@ def _lazy_coll_payload(model: ManoModel, p: ParamDict, config: OptConfig):
     idx = pair_indices(q_r, q_l, rv, lv, faces_r, faces_l)
     tri_r, tri_l = pair_tris_at(rv, lv, faces_r, faces_l, *idx)
     return tri_r, tri_l, pair_aabb_scale(rv, lv)
+
+
+@torch.no_grad()
+def _make_stage_forward(
+    model: ManoModel, stage: Stage, params_entry: ParamDict
+) -> Optional[Callable[[ParamDict], Tuple[torch.Tensor, ...]]]:
+    """The stage's exact forward with the decode partially evaluated against
+    its frozen groups, or None when no hoist applies (a stage that updates a
+    shaping group together with orient).
+
+    ``params_entry`` are the params entering the stage; the groups the stage
+    does not update keep those values for the whole stage. The four cases
+    are tested in the JAX package's order: trans/cam only, orients, shapes,
+    poses (each together with trans and cam)."""
+    up = set(stage.update_params)
+    pe = params_entry
+    if up <= {"trans", "cam"}:
+        # both meshes are rigid: decode once at trans=0; trans enters the
+        # mirrored composition additively on the left hand only
+        rv0, lv0, j0 = two_hand_decode_mirrored(
+            model, pe["right_orient"], pe["left_orient"], pe["right_pose"], pe["left_pose"],
+            pe["right_shape"], pe["left_shape"], torch.zeros_like(pe["trans"]),
+        )
+
+        def fwd(p):
+            t = p["trans"][:, None, :]
+            joints = torch.cat([j0[:, :21], j0[:, 21:] + t], dim=1)
+            return rv0, lv0 + t, joints, orthographic_project(joints, p["cam"])
+
+        return fwd
+    if up <= {"right_orient", "left_orient", "trans", "cam"}:
+        verts_id, lbsj_id = two_hand_identity_orient_payload(
+            model, pe["right_pose"], pe["left_pose"], pe["right_shape"], pe["left_shape"]
+        )
+
+        def fwd(p):
+            rv, lv, joints = two_hand_decode_from_identity(
+                verts_id, lbsj_id, p["right_orient"], p["left_orient"], p["trans"]
+            )
+            return rv, lv, joints, orthographic_project(joints, p["cam"])
+
+        return fwd
+    if up <= {"right_shape", "left_shape", "trans", "cam"}:
+        base, basis = two_hand_shape_affine_payload(
+            model, pe["right_orient"], pe["left_orient"], pe["right_pose"], pe["left_pose"],
+            pe["right_shape"], pe["left_shape"],
+        )
+        shape_r0, shape_l0 = pe["right_shape"], pe["left_shape"]
+
+        def fwd(p):
+            rv, lv, joints = two_hand_decode_from_shape_affine(
+                base, basis, shape_r0, shape_l0, p["right_shape"], p["left_shape"], p["trans"]
+            )
+            return rv, lv, joints, orthographic_project(joints, p["cam"])
+
+        return fwd
+    if up <= {"right_pose", "left_pose", "trans", "cam"}:
+        payload = two_hand_pose_payload(
+            model, pe["right_orient"], pe["left_orient"], pe["right_shape"], pe["left_shape"]
+        )
+
+        def fwd(p):
+            rv, lv, joints = two_hand_decode_from_pose_payload(
+                model, payload, p["right_pose"], p["left_pose"], p["trans"]
+            )
+            return rv, lv, joints, orthographic_project(joints, p["cam"])
+
+        return fwd
+    return None
 
 
 def run_stage(
@@ -339,7 +448,8 @@ def run_stage(
 
     subset = {k: params[k].detach().clone() for k in stage.update_params}
     frozen = {k: v.detach() for k, v in params.items() if k not in stage.update_params}
-    adam = Adam(subset)
+    fwd_fn = _make_stage_forward(model, stage, params) if config.stage_hoist_decode else None
+    opt = Adam(subset) if config.optimizer == "adam" else SGD(subset)
     best = {k: x.detach() for k, x in subset.items()}
     best_select = torch.full((B,), float("inf"), dtype=torch.float32, device=device)
     bars = torch.zeros((len(filter_names), B), dtype=torch.float32, device=device)
@@ -347,14 +457,14 @@ def run_stage(
     def grads_at(payload):
         leaves = {k: x.requires_grad_(True) for k, x in subset.items()}
         total, aux = compute_losses(
-            model, {**frozen, **leaves}, batch, w, config, in_loop=True, coll_tris=payload
+            model, {**frozen, **leaves}, batch, w, config, in_loop=True, coll_tris=payload, fwd_fn=fwd_fn
         )
         grads = torch.autograd.grad(total, list(leaves.values()))
         return {k: a.detach() for k, a in aux.items()}, dict(zip(leaves, grads))
 
     def update(grads):
         nonlocal subset
-        subset = adam.step(subset, grads, stage.lr)
+        subset = opt.step(subset, grads, stage.lr)
 
     def run_block(j0, length, payload):
         nonlocal best, best_select, bars
@@ -378,7 +488,7 @@ def run_stage(
     kre = config.reselect_every_blocks if blocked else 1
 
     def payload_now():
-        return _lazy_coll_payload(model, {**frozen, **subset}, config) if blocked else None
+        return _lazy_coll_payload(model, {**frozen, **subset}, config, fwd_fn) if blocked else None
 
     # superblocks of kre snapshot blocks share one payload rebuild
     nsb, rem = divmod(nblocks, kre)
@@ -396,6 +506,17 @@ def run_stage(
     return {**frozen, **{k: x.detach() for k, x in best.items()}}
 
 
+def _strategy_is_fusable(strategy: Tuple[Stage, ...]) -> bool:
+    """Whether the JAX package's fused engine (the block engine without the
+    hoist) runs this strategy: every stage shares epoch, filter and select
+    losses."""
+    s0 = strategy[0]
+    return all(
+        s.epoch == s0.epoch and s.filter_loss == s0.filter_loss and s.select_loss == s0.select_loss
+        for s in strategy
+    )
+
+
 def optimize_batch(
     model: ManoModel,
     params_init: ParamDict,
@@ -404,7 +525,13 @@ def optimize_batch(
     config: OptConfig = OptConfig(),
 ) -> Tuple[ParamDict, Dict[str, torch.Tensor]]:
     """All stages, then a final pass at the default loss weights with the
-    exact collision metric -> (refined params, results dict)."""
+    full decode and the exact collision metric -> (refined params, results
+    dict)."""
+    if not config.stage_hoist_decode and not _strategy_is_fusable(strategy):
+        raise NotImplementedError(
+            "stage_hoist_decode=False on a strategy whose stages differ in epoch, filter or select loss: "
+            "the JAX package runs its per-stage programs (per-step face reselection) there, which are not ported"
+        )
     params = {k: x.detach() for k, x in params_init.items()}
     for stage in strategy:
         params = run_stage(model, params, batch, stage, config)

@@ -1,28 +1,93 @@
-"""The baseline training loop (port of ``train_baseline_loop`` in
-ihmr_tpu/train/loops.py).
+"""The run loops (port of ihmr_tpu/train/loops.py): baseline training, the
+baseline evaluation and the IHMR-OPT runner, the last two ending in an
+``Evaluator``.
 
-A loader is any iterable of ``BaselineBatch``es with ``len`` and
-``set_epoch`` (``data.BatchList``). Not ported yet: the visualizer hook
-(``utils/``) and ``test_baseline_loop`` (the ``Evaluator``).
+``train_baseline_loop`` takes a loader of ``BaselineBatch``es with ``len``
+and ``set_epoch`` (``data.BatchList``). ``test_baseline_loop`` and
+``optimize_loop`` take, as the JAX loops do, any iterable of raw batch
+dicts with the datasets' keys (numpy arrays; ``_to_baseline_batch`` and
+``_to_opt_batch`` say which) and a ``dataset`` whose ``data_list`` names the
+samples (None: the Evaluator names them by index). Not ported yet: the
+visualizer hook of the training loop (``utils/``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+import os.path as osp
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from ihmr_tpu_torch.device import DeviceLike, resolve_device
+from ihmr_tpu_torch.eval import Evaluator, evaluator_for, results_to_host
 from ihmr_tpu_torch.mano.model import ManoModel
 from ihmr_tpu_torch.refine.adam import Adam
+from ihmr_tpu_torch.refine.opt_engine import OptBatch, OptConfig, ParamDict, optimize_batch, params_from_init
+from ihmr_tpu_torch.refine.schedule import Stage
 from ihmr_tpu_torch.train import checkpoint as ckpt
 from ihmr_tpu_torch.train.baseline import (
+    BaselineBatch,
     BaselineState,
     TrainConfig,
+    eval_step,
     learning_rate_for_epoch,
     set_learning_rate,
     train_step,
 )
-from ihmr_tpu_torch.train.stats import LossStat, TimeStat
+from ihmr_tpu_torch.train.stats import LossStat, OptTimeStat, TimeStat
+from ihmr_tpu_torch.utils import io_utils
+
+
+def _to_baseline_batch(batch: Dict[str, np.ndarray], device: DeviceLike = None) -> BaselineBatch:
+    """A raw baseline-dataset batch (img, hand_type_array, hand_type_valid,
+    joints_2d, joints_3d, mano_pose, mano_betas, mano_params_weight,
+    hand_trans, do_flip) as a BaselineBatch on ``device``."""
+    dev = resolve_device(device)
+
+    def t(key):
+        return torch.as_tensor(np.asarray(batch[key]), device=dev)
+
+    return BaselineBatch(
+        img=t("img"),
+        hand_type_array=t("hand_type_array"),
+        hand_type_valid=t("hand_type_valid"),
+        joints_2d=t("joints_2d"),
+        joints_3d=t("joints_3d"),
+        gt_pose_params=t("mano_pose"),
+        gt_shape_params=t("mano_betas"),
+        mano_params_weight=t("mano_params_weight"),
+        hand_trans=t("hand_trans"),
+        do_flip=t("do_flip"),
+    )
+
+
+def _to_opt_batch(batch: Dict[str, np.ndarray], device: DeviceLike = None) -> Tuple[ParamDict, OptBatch]:
+    """A raw OPT-dataset batch (the baseline's predictions init_cam,
+    init_pose_params, init_shape_params, init_hand_trans, init_joints_2d,
+    init_joints_3d, init_hand_trans_j and the ground truth of
+    ``_to_baseline_batch`` without img and do_flip) as (initial params,
+    OptBatch) on ``device``."""
+    dev = resolve_device(device)
+
+    def t(key):
+        return torch.as_tensor(np.asarray(batch[key]), device=dev)
+
+    params = params_from_init(t("init_cam"), t("init_pose_params"), t("init_shape_params"), t("init_hand_trans"))
+    opt_batch = OptBatch(
+        hand_type_array=t("hand_type_array"),
+        hand_type_valid=t("hand_type_valid"),
+        joints_2d=t("joints_2d"),
+        joints_3d=t("joints_3d"),
+        gt_pose_params=t("mano_pose"),
+        gt_shape_params=t("mano_betas"),
+        mano_params_weight=t("mano_params_weight"),
+        hand_trans=t("hand_trans"),
+        init_joints_2d=t("init_joints_2d"),
+        init_joints_3d=t("init_joints_3d"),
+        init_hand_trans_j=t("init_hand_trans_j"),
+    )
+    return params, opt_batch
 
 
 def _state_info(state: BaselineState, epoch: int) -> Dict:
@@ -122,3 +187,74 @@ def train_baseline_loop(
         if is_main:
             print(f"Current Learning Rate:{lr:.2E}", flush=True)
     return state
+
+
+@torch.no_grad()
+def test_baseline_loop(
+    state: BaselineState,
+    loader,
+    dataset,
+    mano_right: ManoModel,
+    mano_left: ManoModel,
+    config: TrainConfig,
+) -> Evaluator:
+    """The encoder's evaluation: an ``eval_step`` per raw batch (running
+    BatchNorm statistics, the exact collision metric), its outputs and the
+    batch's ``do_flip`` fed to an ``Evaluator`` under the batch's ``index``."""
+    evaluator = evaluator_for(dataset, mano_right.faces, mano_left.faces)
+    dev = state.mean_params.device
+    for raw in loader:
+        _metrics, outputs = eval_step(state, _to_baseline_batch(raw, dev), mano_right, mano_left, config)
+        evaluator.update(np.asarray(raw["index"]), dict(outputs, do_flip=np.asarray(raw["do_flip"])))
+    return evaluator
+
+
+test_baseline_loop.__test__ = False  # not a pytest test
+
+
+def optimize_loop(
+    mano_right: ManoModel,
+    loader,
+    dataset,
+    strategy: Sequence[Stage],
+    config: OptConfig,
+    left_faces: Optional[torch.Tensor] = None,
+    is_main: bool = True,
+    obj_dump_dir: Optional[str] = None,
+) -> Evaluator:
+    """The IHMR-OPT runner: ``optimize_batch`` per raw batch, its results fed
+    to an ``Evaluator`` (no sample flipped), with ``OptTimeStat``'s
+    throughput and ETA printed by the main process. ``left_faces`` defaults
+    to the mirrored winding of the right model's faces.
+
+    ``obj_dump_dir``: when set, the main process writes the first sample of
+    each batch as a two-hand ``iter_{k:04d}.obj`` after refinement."""
+    faces_l = left_faces if left_faces is not None else mano_right.faces.flip(-1)
+    evaluator = evaluator_for(dataset, mano_right.faces, faces_l)
+    strategy = tuple(strategy)
+    time_stat = OptTimeStat(len(loader), samples_per_iter=getattr(loader, "batch_size", None))
+    for raw in loader:
+        time_stat.opt_iter_start()
+        params, opt_batch = _to_opt_batch(raw, mano_right.device)
+        _out_params, results = optimize_batch(mano_right, params, opt_batch, strategy, config)
+        results = results_to_host(results)
+        results["do_flip"] = np.zeros(len(raw["index"]), np.int32)
+        evaluator.update(np.asarray(raw["index"]), results)
+        if obj_dump_dir is not None and is_main:
+            rv0 = results["pred_right_hand_verts"][0]
+            lv0 = results["pred_left_hand_verts"][0]
+            verts = np.concatenate([rv0, lv0], axis=0)
+            faces = np.concatenate([evaluator.right_faces, evaluator.left_faces + rv0.shape[0]], axis=0)
+            io_utils.save_mesh_to_obj(osp.join(obj_dump_dir, f"iter_{time_stat.iter_count:04d}.obj"), verts, faces)
+        time_stat.opt_iter_end()
+        time_stat.samples_per_iter = time_stat.samples_per_iter or len(raw["index"])
+        if is_main:
+            time_stat.print_stat()
+    if is_main:
+        time_stat.print_stat(opt_complete=True)
+    return evaluator
+
+
+def print_metrics(evaluator: Evaluator, tag: str):
+    for metric, value in evaluator.metric_dict().items():
+        print(f"{metric} : {value:.3f} ({tag})", flush=True)

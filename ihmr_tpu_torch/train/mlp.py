@@ -6,7 +6,8 @@ losses of every sample; (b) ``train_mlp_stages``: per stage a fresh
 SubNetwork and Adam, a few epochs of retrieve -> stage-MLP residual -> loss
 -> step, with a per-epoch cosine learning rate; then a no-grad selection
 pass accepts or rejects the update per sample and writes the survivors back
-to the caches; (c) ``test_mlp_loop``: the full cascade per batch.
+to the caches; (c) ``test_mlp_loop``: the full cascade per batch, ending in
+an ``Evaluator``.
 
 A loader is any iterable of MLPBatches with ``len`` and ``set_epoch``
 (``data.BatchList``). With a ``checkpoints_dir`` each trained stage network
@@ -20,6 +21,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ihmr_tpu_torch.eval import Evaluator, evaluator_for
 from ihmr_tpu_torch.mano.model import ManoModel
 from ihmr_tpu_torch.models.encoder import SubNetwork, init_subnetwork_weights
 from ihmr_tpu_torch.refine.adam import Adam
@@ -213,17 +215,19 @@ def test_mlp_loop(
     subnets: Sequence[SubNetwork],
     loader,
     config: OptConfig,
-) -> List[Dict[str, torch.Tensor]]:
-    """The full cascade over every batch of ``loader`` -> one results dict
-    per batch (the cascade's outputs plus ``index``). The JAX loop feeds
-    these to its ``Evaluator``, which is not ported yet (the ``eval/``
-    slice)."""
+    dataset=None,
+    left_faces: Optional[torch.Tensor] = None,
+) -> Evaluator:
+    """The full cascade over every batch of ``loader``, each batch's results
+    fed to an ``Evaluator`` under the batch's ``index`` (no sample flipped).
+    ``dataset.data_list`` names the samples (None: by index); ``left_faces``
+    defaults to the mirrored winding of the model's faces."""
     cascade = make_cascade_apply(model, strategy, dict(MLP_DEFAULT_LOSS_WEIGHTS), config)
-    out = []
+    evaluator = evaluator_for(dataset, model.faces, left_faces if left_faces is not None else model.faces.flip(-1))
     for batch in loader:
         _params, results = cascade(subnets, batch)
-        out.append(dict(results, index=batch.index))
-    return out
+        evaluator.update(batch.index, dict(results, do_flip=np.zeros(len(batch.index), np.int32)))
+    return evaluator
 
 
 test_mlp_loop.__test__ = False  # not a pytest test

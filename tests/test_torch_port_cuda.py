@@ -16,7 +16,16 @@ masks equal; the BatchNorm-statistics kernel against a float64 sum (sum x
 within 1e-5 of sum |x|, sum x^2 within 1e-5 relative; fp32 accumulation in
 another order) and its backward against the closed form (1e-6 relative); a
 short training on the card and on the CPU within
-``pipeline.SHORT_TRAIN_TOL``.
+``pipeline.SHORT_TRAIN_TOL``; the stage-hoisted OPT engine against the full
+decode on the card within 5e-5 over 4 x 21 steps (the JAX package's bound
+between its engines), one exact-collision launch per ``optimize_batch``
+with either; a short ``optimize_loop`` on the card and on the CPU with
+every metric within ``pipeline.SHORT_EVAL_RTOL`` = 1e-3 relative. That
+bound follows from the short refinement's: params within 2e-4 move joints
+by at most ~0.1 x that against joint errors of ~1e-2 (mpjpe_3d,
+inter_mpjpe_3d), the depths by less than the collision losses' 1e-3
+(collision_ave, collision_max), and one depth crossing one of
+collision_auc's thresholds moves it by 1/(2 x 1556 x 49) ~ 7e-6.
 """
 
 import dataclasses
@@ -34,10 +43,13 @@ from ihmr_tpu_torch.ops import exact_collision as K
 from ihmr_tpu_torch.ops import nearest_centroid as NC
 from ihmr_tpu_torch.ops.collision import _centroids
 from ihmr_tpu_torch.pipeline import (
+    SHORT_EVAL_RTOL,
     SHORT_MLP_TOL,
     SHORT_TRAIN_TOL,
     run_short_mlp,
+    run_short_opt_eval,
     run_short_train,
+    short_eval_gaps,
     short_mlp_gaps,
     short_train_gaps,
 )
@@ -226,3 +238,23 @@ def test_short_training_matches_cpu(cuda):
     gaps = short_train_gaps(gpu, run_short_train("cpu"))
     for k, gap in gaps.items():
         assert gap <= SHORT_TRAIN_TOL[k], (k, gap)
+
+
+def test_hoisted_engine_matches_full_decode(cuda):
+    mano = synthetic_mano_model(device=cuda)
+    params, batch = make_opt_inputs(mano, batch=2, seed=0)
+    strategy = tuple(dataclasses.replace(s, epoch=20) for s in opt_default)
+    outs = []
+    for hoist in (True, False):
+        K.reset_launch_count()
+        config = OptConfig(save_mid_freq=10, stage_hoist_decode=hoist)
+        outs.append(optimize_batch(mano, params, batch, strategy, config)[0])
+        torch.cuda.synchronize()
+        assert K.launch_count == 1
+    assert max(float((outs[0][k] - outs[1][k]).abs().max()) for k in params) <= 5e-5
+
+
+def test_short_opt_eval_matches_cpu(cuda):
+    gaps = short_eval_gaps(run_short_opt_eval(cuda), run_short_opt_eval("cpu"))
+    assert set(gaps) == {"mpjpe_3d", "inter_mpjpe_3d", "collision_ave", "collision_max", "collision_auc"}
+    assert all(v <= SHORT_EVAL_RTOL for v in gaps.values()), gaps

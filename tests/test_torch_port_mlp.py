@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from ihmr_tpu.data.synthetic import make_mlp_inputs as jax_make_mlp_inputs
+from ihmr_tpu.eval.evaluator import Evaluator as JEvaluator
 from ihmr_tpu.losses import losses as JL
 from ihmr_tpu.mano.layer import HandParams as JHandParams
 from ihmr_tpu.mano.loader import synthetic_mano_model as jax_synthetic
@@ -44,6 +45,7 @@ from ihmr_tpu_torch.refine import schedule as TS
 from ihmr_tpu_torch.refine.opt_engine import OptConfig
 from ihmr_tpu_torch.train import mlp as TT
 from ihmr_tpu_torch.train.stats import LossStat
+from tests.test_torch_port_eval import _assert_entries_equal, _assert_metrics_close
 from tests.test_torch_port_nearest import jax_tpu_branch
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
@@ -118,6 +120,30 @@ def run_jax_slice(jax_model):
     )
 
 
+def _recorded_mlp_loop(mano, strategy, subnets, loader):
+    """``test_mlp_loop`` with the per-batch cascade results it feeds its
+    Evaluator kept -> (results, evaluator): the cascade runs once."""
+    results = []
+    original = TT.make_cascade_apply
+
+    def recording(*args):
+        cascade = original(*args)
+
+        def apply(subnets, batch):
+            params, res = cascade(subnets, batch)
+            results.append(dict(res, index=batch.index))
+            return params, res
+
+        return apply
+
+    TT.make_cascade_apply = recording
+    try:
+        evaluator = TT.test_mlp_loop(mano, strategy, subnets, loader, OptConfig())
+    finally:
+        TT.make_cascade_apply = original
+    return results, evaluator
+
+
 def run_torch_slice(jax_model):
     """The same run in the port, from JAX's initial stage weights."""
     strategy = _strategy(TS)
@@ -137,8 +163,10 @@ def run_torch_slice(jax_model):
         )
     finally:
         TT.init_stage_subnetwork = original
-    results = TT.test_mlp_loop(mano, strategy, subnets, loader, OptConfig())
-    return dict(snaps=snaps, stage_stats=stage_stats, results=results, subnets=subnets, loader=loader)
+    results, evaluator = _recorded_mlp_loop(mano, strategy, subnets, loader)
+    return dict(
+        snaps=snaps, stage_stats=stage_stats, results=results, evaluator=evaluator, subnets=subnets, loader=loader
+    )
 
 
 @pytest.fixture(scope="module")
@@ -355,6 +383,22 @@ def test_cascade_matches_jax(jax_slice, torch_slice):
         np.testing.assert_allclose(tres["collision_loss"].numpy(), jres["collision_loss"], rtol=1e-3, atol=1e-6)
         assert set(tres) == set(jres) | {"index"}
         assert all(bool(torch.isfinite(v).all()) for v in tres.values())
+
+
+def test_mlp_loop_evaluator_matches_jax(torch_slice):
+    """``test_mlp_loop``'s Evaluator against a JAX Evaluator fed the
+    per-batch cascade results it was fed: entries equal, metrics within 1e-9
+    relative."""
+    ref = JEvaluator([])
+    for tres in torch_slice["results"]:
+        res = {k: v.numpy() for k, v in tres.items()}
+        res["do_flip"] = np.zeros(len(res["index"]), np.int32)
+        ref.update(res["index"], res)
+    ours = torch_slice["evaluator"]
+    _assert_entries_equal(ours.pred_results, ref.pred_results)
+    _assert_metrics_close(ours.metric_dict(), ref.metric_dict())
+    assert len(ours.pred_results) == B * N_BATCHES
+    assert all(np.isfinite(v) for v in ours.metric_dict().values())
 
 
 def report_slice_gaps() -> None:

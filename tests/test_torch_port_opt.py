@@ -5,7 +5,8 @@ stage's weights, then ``optimize_batch`` at B=2 with every ``opt_default``
 stage cut to epoch=20 (21 steps = one superblock of two snapshot blocks plus
 a one-step tail block with its own payload) and ``save_mid_freq=10``, against
 JAX ``OptConfig(save_mid_freq=10, collision_backend="pallas")`` (the exact
-kernel in interpret mode for the final metric). Tolerances: final params
+kernel in interpret mode for the final metric). Both run their default
+engine, the stage-hoisted one. Tolerances: final params
 2e-4 absolute (as tests/test_ref_e2e_opt.py holds the JAX engine to the
 reference), final collision loss 1e-3 relative; inputs 1e-5 absolute (fp32
 decode), losses 1e-5 relative. The JAX side compiles for ~80 s on one CPU
@@ -80,11 +81,20 @@ def test_opt_config_defaults_and_unported_paths():
         assert getattr(ours, f.name) == getattr(ref, f.name), f.name
     for bad in (
         dict(collision_backend="xla"), dict(num_candidates=4), dict(loop_collision_fast=False),
-        dict(loop_collision_alternate=True), dict(escalate_collision=1.0), dict(stage_hoist_decode=False),
-        dict(optimizer="sgd"),
+        dict(loop_collision_alternate=True), dict(escalate_collision=1.0), dict(loop_collision_lazy_reselect=False),
+        dict(loop_collision_freeze_positions=False), dict(loop_collision_cluster=2), dict(grid_res=16),
     ):
         with pytest.raises(NotImplementedError):
             OptConfig(**bad)
+    # ported since the first slice: the full-decode engine (JAX's fused
+    # engine) and SGD in the hoisted engine; SGD without the hoist is JAX's
+    # per-stage programs, not ported
+    assert not OptConfig(stage_hoist_decode=False).stage_hoist_decode
+    assert OptConfig(optimizer="sgd").optimizer == "sgd"
+    with pytest.raises(NotImplementedError):
+        OptConfig(stage_hoist_decode=False, optimizer="sgd")
+    with pytest.raises(ValueError):
+        OptConfig(optimizer="rmsprop")
 
 
 def test_make_opt_inputs_parity(jax_inputs):
@@ -150,14 +160,28 @@ def test_optimize_batch_matches_jax(torch_inputs, jax_result):
         assert res[k].shape == jres[k].shape and torch.isfinite(res[k]).all()
 
 
-def compare_full_schedule(batch: int, seed: int, threads) -> None:
-    """Both engines over the FULL opt_default (4 x 301 steps) on the same
-    inputs; the port runs once per torch CPU thread count in ``threads`` (the
-    count changes the order of torch's CPU sums). Prints, per run, the
-    largest parameter difference per sample and both final collision losses.
-    Too slow for the test tier; run from the repo root:
+def test_full_decode_engine_matches_jax(torch_inputs, jax_result):
+    """The port's ``stage_hoist_decode=False`` engine against the same JAX
+    run (its hoisted engine, which the JAX package holds to its fused engine
+    within 5e-5), at the bounds above."""
+    tm, tp, tb = torch_inputs
+    jout, jres = jax_result
+    out, res = optimize_batch(tm, tp, tb, _short(opt_default), OptConfig(save_mid_freq=10, stage_hoist_decode=False))
+    for k in jout:
+        np.testing.assert_allclose(out[k].numpy(), jout[k], atol=2e-4, err_msg=k)
+    np.testing.assert_allclose(res["collision_loss"].numpy(), jres["collision_loss"], rtol=1e-3, atol=1e-6)
 
-        JAX_PLATFORMS=cpu python -m tests.test_torch_port_opt --batch 8 --threads 1 2 8
+
+def compare_full_schedule(batch: int, seed: int, threads, stage_hoist_decode: bool = True) -> None:
+    """Both packages over the FULL opt_default (4 x 301 steps) on the same
+    inputs, JAX on its default (stage-hoisted) engine and the port on the
+    engine ``stage_hoist_decode`` selects; the port runs once per torch CPU
+    thread count in ``threads`` (the count changes the order of torch's CPU
+    sums). Prints, per run, the largest parameter difference per sample and
+    both final collision losses. Too slow for the test tier; run from the
+    repo root:
+
+        JAX_PLATFORMS=cpu python -m tests.test_torch_port_opt --batch 8 --threads 1 2 8 [--no_stage_hoist]
     """
     import time
 
@@ -167,14 +191,16 @@ def compare_full_schedule(batch: int, seed: int, threads) -> None:
     cfg = JE.OptConfig(save_mid_freq=10, collision_backend="pallas")
     jout, jres = jax.tree_util.tree_map(np.asarray, JE.optimize_batch(jm, jp, jb, JS.opt_default, cfg))
     jcoll = jres["collision_loss"]
-    print(f"B={batch} seed={seed}, 4 x 301 steps; JAX {time.perf_counter() - t0:.1f}s (with compile)")
+    print(f"B={batch} seed={seed}, 4 x 301 steps; JAX {time.perf_counter() - t0:.1f}s (with compile); "
+          f"port stage_hoist_decode={stage_hoist_decode}")
     print(f"  JAX final collision loss per sample {jcoll.tolist()}, mean {jcoll.mean():.6f}")
     tb = OptBatch(**{f.name: T(getattr(jb, f.name)) for f in dataclasses.fields(OptBatch)})
     for n in threads:
         torch.set_num_threads(n)
         t0 = time.perf_counter()
         out, res = optimize_batch(
-            synthetic_mano_model(device="cpu"), {k: T(v) for k, v in jp.items()}, tb, opt_default, OptConfig()
+            synthetic_mano_model(device="cpu"), {k: T(v) for k, v in jp.items()}, tb, opt_default,
+            OptConfig(stage_hoist_decode=stage_hoist_decode),
         )
         dt = time.perf_counter() - t0
         err = np.max([np.abs(out[k].numpy() - jout[k]).reshape(batch, -1).max(1) for k in jout], axis=0)
@@ -192,5 +218,6 @@ if __name__ == "__main__":
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--threads", type=int, nargs="+", default=[1])
+    ap.add_argument("--no_stage_hoist", action="store_true", help="run the port's full-decode engine")
     args = ap.parse_args()
-    compare_full_schedule(args.batch, args.seed, args.threads)
+    compare_full_schedule(args.batch, args.seed, args.threads, not args.no_stage_hoist)
