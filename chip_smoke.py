@@ -61,7 +61,24 @@ Phases (each raises on failure; any failure exits non-zero before the last line)
    (make_opt_inputs seeds 0 and 1) with every stage cut to epoch 20 (one
    exact_collision launch per batch); with the MLP's and the baseline's,
    each loop's metric_dict is printed and every metric must be finite.
-7. Small inputs held against the CPU: optimize_batch at B=2 with a short
+7. The command line at full width (``python -m ihmr_tpu_torch.cli``, run
+   in-process through ``cli.main``) on a corpus of N=256 files written by
+   ``data.synthetic.write_corpus`` with the port's PNG writer (256x192 and
+   192x256 images in turn, hand types interacting / right / left in turn),
+   ResNet-50 at 224x224 and the full synthetic MANO mesh:
+   ``IHMR_BN_IMPL=pallas train-baseline`` (B=64, one epoch of 4 steps, random
+   flip, rescale and position), ``test-baseline --export_pred`` (B=64),
+   ``optimize --export_pseudo_gt`` (B=128, stages cut to epoch 20),
+   ``train-mlp --use_opt_params`` (B=128, stages cut to 2 epochs) and
+   ``test-mlp`` (B=128). Each command's wall seconds, its split into data
+   time (waiting for and converting batches) and the rest, its kernel
+   launches from counts zeroed just before it and read just after (asserted
+   against what its loop does per batch or step), and its metric_dict
+   (finite); train-baseline's images/sec beside phase 5's replayed batch.
+   Then ``optimize`` on a 4-sample corpus on the card and on the CPU, the
+   metrics within pipeline.SHORT_EVAL_RTOL and the params within
+   SMALL_PARAM_TOL; and neither cv2 nor PIL imported.
+8. Small inputs held against the CPU: optimize_batch at B=2 with a short
    schedule, pipeline.run_short_opt_eval (optimize_loop at B=2, 4 x 21
    steps), pipeline.run_short_mlp (three stages, one epoch, N=4) and
    pipeline.run_short_train (ResNet-18 at 64x64, B=4, two steps), on the
@@ -763,6 +780,161 @@ def phase_small_train(dev):
         raise AssertionError("the card and the CPU disagree on a small training run")
 
 
+CLI_N = 256  # samples of the command line's corpus
+
+
+def _cli(argv):
+    """One command through the port's CLI -> (its summary, launches, wall seconds)."""
+    from ihmr_tpu_torch import cli
+
+    zero_counts()
+    t0 = time.perf_counter()
+    out = cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return out, read_counts(), seconds
+
+
+def _time_decode(img_dir):
+    """Host ms per image of the port's PNG decode, and of its parts."""
+    from ihmr_tpu_torch.data import image_io, native
+
+    files = [os.path.join(img_dir, f) for f in sorted(os.listdir(img_dir))]
+    blobs = [open(f, "rb").read() for f in files]
+    image_io.imread(files[0])  # builds the native library (g++) outside the timing
+    t0 = time.perf_counter()
+    lines = [image_io.png_scanlines(b) for b in blobs]
+    t1 = time.perf_counter()
+    for h, w, ch, raw in lines:
+        native.png_unfilter(raw, h, w * ch, ch)
+    t2 = time.perf_counter()
+    for f in files:
+        image_io.imread(f)
+    t3 = time.perf_counter()
+    n = len(files)
+    log(f"  PNG decode on this host, {n} images of 256x192 / 192x256: imread {(t3 - t2) / n * 1e3:.4f} ms each "
+        f"(chunks and zlib inflate {(t1 - t0) / n * 1e3:.4f} ms, the row filters undone in C "
+        f"{(t2 - t1) / n * 1e3:.4f} ms)")
+
+
+def phase_cli_chain(dev, replayed_ms_per_step):
+    """The five workload commands at full width on a corpus of files."""
+    import tempfile
+
+    from ihmr_tpu_torch.data.synthetic import write_corpus
+    from ihmr_tpu_torch.refine import mlp_default
+
+    log(f"command line: the five workload commands on N={CLI_N} PNG files, ResNet-50 224x224, full MANO mesh")
+    counts = {}
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        write_corpus(os.path.join(work, "corpus"), CLI_N, seed=0)
+        log(f"  corpus written in {time.perf_counter() - t0:.2f}s")
+        _time_decode(os.path.join(work, "corpus", "hand26m", "image"))
+        common = ["--data_root", os.path.join(work, "corpus"), "--anno_path", "anno.pkl", "--synthetic_mano",
+                  "--checkpoints_dir", os.path.join(work, "ckpt"), "--device", "cuda"]
+        pred, pgt = os.path.join(work, "chain_pred.pkl"), os.path.join(work, "pseudo_gt.pkl")
+        cwd = os.getcwd()
+        os.chdir(work)  # evaluate_results/ is written under the working directory
+        try:
+            os.environ["IHMR_BN_IMPL"] = "pallas"
+            try:
+                train, counts["cli_train"], sec = _cli(
+                    ["train-baseline", "--batchSize", "64", "--total_epoch", "1", "--save_epoch_freq", "1",
+                     "--use_random_flip", "--use_random_rescale", "--use_random_position"] + common)
+            finally:
+                del os.environ["IHMR_BN_IMPL"]
+            (epoch,) = train["epoch_stats"]
+            steps = epoch["steps"]
+            step_ms = epoch["step_seconds"] / steps * 1e3
+            log(f"  train-baseline: {sec:.3f}s wall; {steps} steps, TimeStat data {epoch['data_seconds']:.3f}s, "
+                f"forward {epoch['forward_seconds']:.3f}s -> {step_ms:.3f} ms/step, {64e3 / step_ms:.3f} images/sec "
+                f"(phase 5's replayed batch in this run: {replayed_ms_per_step:.3f} ms/step, "
+                f"{64e3 / replayed_ms_per_step:.3f} images/sec); total loss {epoch['total_loss']}; "
+                f"launches {counts['cli_train']}")
+            # 53 BatchNorms a step, each one K3 launch; collision loss off, no evaluation
+            check_counts("train-baseline", counts["cli_train"], exact_collision=0, nearest_centroid=0,
+                         bn_stats=53 * steps)
+            if steps != CLI_N // 64 or not np.isfinite(epoch["total_loss"]).all():
+                raise AssertionError(f"train-baseline ran {steps} steps, losses {epoch['total_loss']}")
+
+            commands = [
+                ("cli_test_baseline", ["test-baseline", "--batchSize", "64", "--export_pred", pred],
+                 # one eval_step per batch: one exact pass (both directions in one launch), eval-mode BatchNorm
+                 dict(exact_collision=CLI_N // 64, nearest_centroid=0, bn_stats=0)),
+                ("cli_optimize", ["optimize", "--pred_path", pred, "--batchSize", "128", "--stage_epochs", "20",
+                                  "--export_pseudo_gt", pgt],
+                 # one optimize_batch per batch, each ending in one exact pass
+                 dict(exact_collision=CLI_N // 128, nearest_centroid=0, bn_stats=0)),
+                ("cli_train_mlp", ["train-mlp", "--pred_path", pred, "--use_opt_params", "--opt_params_path", pgt,
+                                   "--batchSize", "128", "--stage_epochs", "2"],
+                 # K2 once per train step (6 stages x 2 epochs x 2 batches); K1 in the warm pass and in each
+                 # stage's selection pass, once per batch
+                 dict(exact_collision=(1 + len(mlp_default)) * CLI_N // 128,
+                      nearest_centroid=len(mlp_default) * 2 * CLI_N // 128, bn_stats=0)),
+                ("cli_test_mlp", ["test-mlp", "--pred_path", pred, "--batchSize", "128"],
+                 # the cascade per batch: the seed pass, one per stage and the final pass
+                 dict(exact_collision=(len(mlp_default) + 2) * CLI_N // 128, nearest_centroid=0, bn_stats=0)),
+            ]
+            metrics = {}
+            for path, argv, expected in commands:
+                out, counts[path], sec = _cli(argv + common)
+                log(f"  {argv[0]}: {sec:.3f}s wall, {out['seconds']:.3f}s in its loops: data {out['data_seconds']:.3f}s, "
+                    f"the rest (device work and its dispatch, the Evaluator) {out['forward_seconds']:.3f}s; "
+                    f"launches {counts[path]} (expected {expected})")
+                check_counts(argv[0], counts[path], **expected)
+                if "evaluator" in out:
+                    if len(out["evaluator"].pred_results) != CLI_N:
+                        raise AssertionError(f"{argv[0]}: {len(out['evaluator'].pred_results)} results")
+                    metrics[argv[0]] = _check_metrics(argv[0], out["evaluator"])
+                else:
+                    stats = out["stage_stats"]
+                    log("  " + "; ".join(f"stage {s['stage']} accept {s['accepted_frac']:.3f}" for s in stats))
+                    if not bool(out["caches"].exists.all()) or not all(np.isfinite(s["select_after"]) for s in stats):
+                        raise AssertionError("train-mlp left samples uncached or non-finite")
+            written = sorted(os.listdir(os.path.join(work, "evaluate_results")))
+            if written != ["baseline", "mlp", "optimize"] or not (os.path.exists(pred) and os.path.exists(pgt)):
+                raise AssertionError(f"the command line wrote {written}")
+        finally:
+            os.chdir(cwd)
+    log("  metric_dict of the command line's evaluations: " + json.dumps(metrics))
+    return counts
+
+
+def phase_cli_small(dev):
+    """optimize through the CLI on a 4-sample corpus, card against CPU."""
+    import tempfile
+
+    from ihmr_tpu_torch import cli
+    from ihmr_tpu_torch.data.synthetic import write_corpus
+    from ihmr_tpu_torch.pipeline import SHORT_EVAL_RTOL
+
+    with tempfile.TemporaryDirectory() as work:
+        write_corpus(os.path.join(work, "corpus"), 4, seed=1)
+        argv = ["optimize", "--data_root", os.path.join(work, "corpus"), "--anno_path", "anno.pkl", "--pred_path",
+                "pred.pkl", "--batchSize", "2", "--synthetic_mano", "--stage_epochs", "20"]
+        cwd = os.getcwd()
+        os.chdir(work)
+        try:
+            runs = {d: cli.main(argv + ["--device", d])["evaluator"] for d in ("cuda", "cpu")}
+        finally:
+            os.chdir(cwd)
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    keys = ("pred_cam_params", "pred_pose_params", "pred_shape_params", "pred_hand_trans")
+    err = max(float(np.abs(a[k] - b[k]).max()) for a, b in zip(gpu.pred_results, cpu.pred_results) for k in keys)
+    mg, mc = gpu.metric_dict(), cpu.metric_dict()
+    gaps = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12) for k in mc}
+    log(f"command line optimize on 4 samples (B=2, 4 x 21 steps), card vs CPU: params max |err| {err:.3e} "
+        f"(tol {SMALL_PARAM_TOL}); metric_dict " + ", ".join(f"{k} {mg[k]:.6f} vs {mc[k]:.6f}" for k in mc)
+        + f"; largest relative gap {max(gaps.values()):.3e} (tol {SHORT_EVAL_RTOL})")
+    if err > SMALL_PARAM_TOL or set(mg) != set(mc) or any(v > SHORT_EVAL_RTOL for v in gaps.values()):
+        raise AssertionError("the card and the CPU disagree on the command line's optimize")
+    loaded = [m for m in ("cv2", "PIL") if m in sys.modules]
+    log(f"  image libraries imported in this run: {loaded or 'none'} (cv2 and PIL must not be)")
+    if loaded:
+        raise AssertionError(f"{loaded} imported")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -783,6 +955,8 @@ def main():
     opt_eval_counts, opt_eval_md = phase_opt_eval(dev)
     log("metric_dict of the three evaluation loops: " + json.dumps(
         {"optimize_loop": opt_eval_md, "test_baseline_loop": train["baseline_md"], "test_mlp_loop": mlp_md}))
+    cli_counts = phase_cli_chain(dev, train["ms_per_step"])
+    phase_cli_small(dev)
     phase_small_input(dev)
     phase_small_eval(dev)
     phase_small_mlp(dev)
@@ -794,12 +968,12 @@ def main():
     # just after it; "launches" is their sum and "launches_by_path" keeps them
     # apart (opt: the timed OPT run; opt_eval: optimize_loop; mlp: the timed
     # MLP run; train: the 20 train steps and one eval_step; baseline_eval:
-    # test_baseline_loop). K1's and
+    # test_baseline_loop; cli_*: each command of the command line). K1's and
     # K2's times are one launch at the main path's shape; K3's are the sum
     # over the 53 launches of one train step ("ms_basis"). "ms" is device
     # time alone.
     by_path = dict(opt=opt_counts, opt_eval=opt_eval_counts, mlp=mlp_counts, train=train["counts"],
-                   baseline_eval=train["loop_counts"])
+                   baseline_eval=train["loop_counts"], **cli_counts)
     kernels = [
         dict(name="exact_collision", source="ihmr_tpu_torch/csrc/exact_collision.cu",
              replaces="ihmr_tpu/ops/pallas_collision.py:133", library_ms=None,

@@ -1,11 +1,17 @@
-"""Build the port's CUDA sources and load them with ctypes.
+"""Build the port's native sources and load them with ctypes.
 
-Each source under ``csrc/`` has a plain C interface and is compiled by
+Each CUDA source under ``csrc/`` has a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/ihmr_tpu_torch/`` beside the package, named by a hash of the source
 and the flags, so an unchanged source is built once. Building happens at
 first use (``load_library``) or up front for every source in parallel
 (``build_all``, one ``nvcc`` process per source).
+
+The host data kernels (``csrc/data_kernels.cpp``: the letterbox and the PNG
+row filters) are compiled by ``g++`` with the JAX package's flags
+(``-march=native``) at first use (``load_host_library``); their library name
+also hashes the host CPU's identity, so a build directory copied to another
+machine is rebuilt there. A failed build raises.
 
     python -m ihmr_tpu_torch.build     # build every kernel, print ptxas usage
 """
@@ -37,6 +43,10 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
+
+# host kernel name -> C++ source, relative to the package
+HOST_SOURCES: Dict[str, str] = {"data_kernels": "csrc/data_kernels.cpp"}
+GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17", "-pthread"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _functions: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
@@ -113,6 +123,43 @@ def kernel_function(name: str, symbol: str, argtypes: List[type]):
         fn.restype = ctypes.c_int
         _functions[key] = fn
     return _functions[key]
+
+
+def _cpu_identity() -> bytes:
+    """The first processor's model name and flags (what -march=native reads)."""
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            lines = [ln for ln in f.read().split(b"\n") if ln.startswith((b"model name", b"flags"))]
+        return b"\n".join(lines[:2])
+    except OSError:
+        return b""
+
+
+def host_library_path(name: str) -> Path:
+    src = (PACKAGE_DIR / HOST_SOURCES[name]).read_bytes()
+    digest = hashlib.sha256(src + " ".join(GXX_FLAGS).encode() + _cpu_identity()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def load_host_library(name: str) -> ctypes.CDLL:
+    """The loaded host library ``name``, compiled with g++ first if needed;
+    raises with g++'s output when the build fails."""
+    if name not in _loaded:
+        out = host_library_path(name)
+        if not out.exists():
+            gxx = shutil.which("g++")
+            if gxx is None:
+                raise RuntimeError(f"g++ not found: cannot build {HOST_SOURCES[name]}")
+            out.parent.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run([gxx, *GXX_FLAGS, str(PACKAGE_DIR / HOST_SOURCES[name]), "-o", str(tmp)],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"building {HOST_SOURCES[name]} failed (g++ exited {proc.returncode}):\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            os.replace(tmp, out)
+        _loaded[name] = ctypes.CDLL(str(out))
+    return _loaded[name]
 
 
 if __name__ == "__main__":

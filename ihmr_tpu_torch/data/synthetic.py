@@ -16,7 +16,9 @@ builds a baseline training batch (the ground truth of ``generate`` plus
 seeded Gaussian images, as ``scripts/train_bench.py`` does); ``BatchList``
 replays pre-built batches as the loader of the MLP and baseline loops;
 ``opt_raw_batch`` and ``baseline_raw_batch`` turn batches into the raw
-dataset dicts that ``optimize_loop`` and ``test_baseline_loop`` read.
+dataset dicts that ``optimize_loop`` and ``test_baseline_loop`` read;
+``write_corpus`` writes the same draws as files the datasets and the CLI
+read (PNG images, an annotation pkl and a prediction pkl).
 
 Not ported yet: the interlocked, grazing and single-hand variants.
 """
@@ -24,6 +26,7 @@ Not ported yet: the interlocked, grazing and single-hand variants.
 from __future__ import annotations
 
 import dataclasses
+import os.path as osp
 from typing import Dict, Tuple
 
 import numpy as np
@@ -220,3 +223,69 @@ def baseline_raw_batch(batch, index_offset: int = 0) -> Dict[str, np.ndarray]:
     out = {names.get(f.name, f.name): _host(getattr(batch, f.name)) for f in dataclasses.fields(batch)}
     out["index"] = np.arange(index_offset, index_offset + batch.img.shape[0])
     return out
+
+
+HAND_TYPES = ("interacting", "right", "left")
+
+
+CORPUS_SHAPES = ((256, 192), (192, 256))  # height x width, in turn: both letterbox branches
+
+
+def write_corpus(root: str, n: int, seed: int = 0) -> None:
+    """A dataset on disk from ``generate(synthetic hand, n, seed, noise=0.15)``:
+    ``root/hand26m/image/img_{i:05d}.png`` (``CORPUS_SHAPES`` in turn, a
+    smooth seeded pattern with noise, written by the port's PNG writer), ``root/anno.pkl`` (hand types interacting / right / left in
+    turn; a single hand's other MANO param is None and its joints have
+    validity 0; 2D joints in the image's pixels, so the datasets' letterbox
+    and normalization map them back onto the projected ground truth) and
+    ``root/pred.pkl`` (the noisy initial predictions, keypoints from the
+    same draws, img_feat = |randn(1024)|)."""
+    from ihmr_tpu_torch.data.image_io import imwrite_png
+    from ihmr_tpu_torch.mano.loader import synthetic_mano_model
+    from ihmr_tpu_torch.utils import io_utils
+
+    d = {k: v.numpy() for k, v in generate(synthetic_mano_model(device="cpu"), n, seed, 0.15).items()}
+    rng = np.random.RandomState(seed + 7)
+    img_dir = io_utils.build_dir(osp.join(root, "hand26m", "image"))
+    annos, preds = [], {}
+    for i in range(n):
+        height, width = CORPUS_SHAPES[i % len(CORPUS_SHAPES)]
+        to_pixels = np.float32(max(height, width) / 2.0)  # [-1, 1] of the letterbox -> pixels
+        yy, xx = np.mgrid[0:height, 0:width]
+        pattern = np.stack([(xx * 3 + i) % 256, (yy * 2 + 5 * i) % 256, ((xx + yy) // 2) % 256], axis=-1)
+        img = np.clip(pattern + rng.randint(-8, 9, size=pattern.shape), 0, 255).astype(np.uint8)
+        img_path = f"img_{i:05d}.png"
+        imwrite_png(osp.join(img_dir, img_path), img)
+
+        hand_type = HAND_TYPES[i % len(HAND_TYPES)]
+        valid = np.ones((42, 1), np.float32)
+        if hand_type == "right":
+            valid[21:] = 0.0
+        elif hand_type == "left":
+            valid[:21] = 0.0
+        j2 = ((d["gt_j2"][i] + 1.0) * to_pixels).astype(np.float32)
+        params = {
+            hand: dict(pose=d["gt_pose"][i, off * 48: off * 48 + 48], shape=d["gt_shape"][i, off * 10: off * 10 + 10])
+            for off, hand in enumerate(("right", "left"))
+        }
+        annos.append(dict(
+            img_path=img_path,
+            hand_type=hand_type,
+            hand_type_valid=1.0,
+            joints_2d=np.concatenate([j2, valid], axis=1),
+            joints_3d=np.concatenate([d["gt_j3"][i], valid], axis=1),
+            scale=1.0,
+            right_hand_param=params["right"] if hand_type != "left" else None,
+            left_hand_param=params["left"] if hand_type != "right" else None,
+        ))
+        preds[img_path] = dict(
+            pred_cam_params=d["init_cam"][i],
+            pred_shape_params=d["init_shape"][i],
+            pred_pose_params=d["init_pose"][i],
+            pred_hand_trans=d["init_trans"][i],
+            joints_2d=((d["init_j2"][i] + 1.0) * to_pixels).astype(np.float32),
+            joints_3d=d["init_j3"][i],
+            img_feat=np.abs(rng.randn(1024)).astype(np.float32),
+        )
+    io_utils.save_pkl(osp.join(root, "anno.pkl"), annos)
+    io_utils.save_pkl(osp.join(root, "pred.pkl"), preds)

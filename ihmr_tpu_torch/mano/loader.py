@@ -1,22 +1,83 @@
-"""MANO assets (port of the synthetic half of ihmr_tpu/mano/loader.py).
+"""MANO assets (port of ihmr_tpu/mano/loader.py).
 
-``synthetic_mano_model`` builds the deterministic synthetic hand with
-MANO's exact tensor shapes from the same numpy draws as the JAX package, so
-both packages hold bit-identical arrays for one seed. Faces are Morton-sorted
-(``sort_faces_spatially``): the in-loop collision's face stride ``faces[::2]``
-relies on that order being a spatially uniform sub-mesh, and the exact
-collision kernel's tile pruning on tiles being spatially tight.
+Two sources:
 
-The official ``MANO_*.pkl`` loader is not ported yet.
+  * ``load_mano_model`` / ``load_mano_pair`` read the official
+    ``MANO_{RIGHT,LEFT}.pkl`` files. They hold chumpy objects and scipy
+    sparse matrices; a tolerant unpickler reads them without chumpy and
+    everything becomes plain numpy. The known left-hand ``shapedirs`` bug
+    is fixed as the reference fixes it: when the left and right x rows
+    coincide, the left x row is negated.
+  * ``synthetic_mano_model`` builds the deterministic synthetic hand with
+    MANO's exact tensor shapes from the same numpy draws as the JAX
+    package, so both packages hold bit-identical arrays for one seed.
+
+Faces are Morton-sorted (``sort_faces_spatially``): the in-loop collision's
+face stride ``faces[::2]`` relies on that order being a spatially uniform
+sub-mesh, and the exact collision kernel's tile pruning on tiles being
+spatially tight.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import io
+import os.path as osp
+import pickle
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from ihmr_tpu_torch.device import DeviceLike, resolve_device
-from ihmr_tpu_torch.mano.model import NUM_BETAS, NUM_FACES, NUM_JOINTS, NUM_POSE_JOINTS, NUM_VERTS, ManoModel
+from ihmr_tpu_torch.mano.model import (
+    MANO_PARENTS,
+    NUM_BETAS,
+    NUM_FACES,
+    NUM_JOINTS,
+    NUM_POSE_JOINTS,
+    NUM_VERTS,
+    ManoModel,
+)
+
+
+class _Stub:
+    """Placeholder for unpicklable classes (chumpy.Ch); keeps the raw state."""
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __setstate__(self, state):
+        self.__dict__.update(state if isinstance(state, dict) else {"state": state})
+
+
+class _TolerantUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        try:
+            return super().find_class(module, name)
+        except (ImportError, AttributeError):
+            return _Stub
+
+
+def _to_numpy(obj) -> np.ndarray:
+    if isinstance(obj, np.ndarray):
+        return np.asarray(obj, np.float64)
+    if hasattr(obj, "toarray"):  # scipy sparse
+        return np.asarray(obj.toarray(), np.float64)
+    for attr in ("r", "x", "v"):  # chumpy conventions
+        if hasattr(obj, attr):
+            return _to_numpy(getattr(obj, attr))
+    if isinstance(obj, _Stub):
+        for key in ("x", "r", "v", "a"):
+            if key in obj.__dict__:
+                return _to_numpy(obj.__dict__[key])
+    return np.asarray(obj, np.float64)
+
+
+def _load_raw_pkl(path: str) -> Dict:
+    with open(path, "rb") as f:
+        data = f.read()
+    return _TolerantUnpickler(io.BytesIO(data), encoding="latin1").load()
 
 
 def _spread_bits(v: np.ndarray) -> np.ndarray:
@@ -150,6 +211,42 @@ def model_from_arrays(arrays: dict, device: DeviceLike = None, is_rhand: bool = 
 def synthetic_mano_model(seed: int = 0, device: DeviceLike = None) -> ManoModel:
     """Deterministic synthetic right hand with MANO's exact tensor shapes."""
     return model_from_arrays(synthetic_mano_arrays(seed), device)
+
+
+def load_mano_model(path: str, is_rhand: bool, device: DeviceLike = None) -> Tuple[ManoModel, np.ndarray]:
+    """One ``MANO_*.pkl`` -> (model on ``device``, hands_mean (45,) float64).
+    Faces are Morton-sorted; a kinematic tree other than MANO's raises."""
+    raw = _load_raw_pkl(path)
+    v_template = _to_numpy(raw["v_template"]).reshape(NUM_VERTS, 3)
+    faces = sort_faces_spatially(v_template, np.asarray(_to_numpy(raw["f"]), np.int64).reshape(-1, 3))
+    arrays = dict(
+        v_template=v_template,
+        shapedirs=_to_numpy(raw["shapedirs"])[..., :NUM_BETAS].reshape(NUM_VERTS, 3, NUM_BETAS),
+        posedirs=_to_numpy(raw["posedirs"]).reshape(NUM_VERTS * 3, 9 * NUM_POSE_JOINTS).T,
+        j_regressor=_to_numpy(raw["J_regressor"]).reshape(NUM_JOINTS, NUM_VERTS),
+        lbs_weights=_to_numpy(raw["weights"]).reshape(NUM_VERTS, NUM_JOINTS),
+        faces=faces,
+    )
+    hands_mean = _to_numpy(raw.get("hands_mean", np.zeros(3 * NUM_POSE_JOINTS))).reshape(-1)
+    kintree = raw.get("kintree_table")
+    if kintree is not None:
+        parents = np.asarray(_to_numpy(kintree), np.int64)[0].astype(np.int32)
+        parents[0] = -1
+        if not np.array_equal(parents, MANO_PARENTS):
+            raise ValueError(f"{path}: unexpected MANO kinematic tree {parents.tolist()}")
+    return model_from_arrays(arrays, device, is_rhand=is_rhand), hands_mean.astype(np.float64)
+
+
+def load_mano_pair(model_root: str, device: DeviceLike = None) -> Dict[str, Tuple[ManoModel, np.ndarray]]:
+    """Both hands from ``model_root``, with the left-shapedirs x-flip fix:
+    {'right': (model, hands_mean), 'left': (model, hands_mean)}."""
+    right, right_mean = load_mano_model(osp.join(model_root, "MANO_RIGHT.pkl"), True, device)
+    left, left_mean = load_mano_model(osp.join(model_root, "MANO_LEFT.pkl"), False, device)
+    shape_diff = float((left.shapedirs[:, 0, :] - right.shapedirs[:, 0, :]).abs().mean())
+    if shape_diff < 1e-7:  # the well-known left-hand MANO bug
+        sign = torch.tensor([-1.0, 1.0, 1.0], dtype=left.shapedirs.dtype, device=left.device)
+        left = dataclasses.replace(left, shapedirs=left.shapedirs * sign[None, :, None])
+    return {"right": (right, right_mean), "left": (left, left_mean)}
 
 
 def mirror_mano_model(right: ManoModel) -> ManoModel:

@@ -14,13 +14,18 @@ are orbax directories of flax trees under the same names without a suffix
 reference's own torch encoder checkpoints (``{epoch}_net_baseline.pth``)
 have the port's state-dict names and load as they are (``load_encoder``,
 strict).
+
+``import_torch_resnet`` maps a torchvision-layout ResNet state dict (the
+reference's pretrained backbone, ``--pretrain_weights``) onto the encoder's
+backbone, as the JAX package's importer of the same name maps it onto the
+flax ResNet.
 """
 
 from __future__ import annotations
 
 import os
 import os.path as osp
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Mapping, Optional, Union
 
 import torch
 from torch import nn
@@ -83,3 +88,39 @@ def load_encoder(encoder: nn.Module, path: str) -> nn.Module:
     ``.pth``) into ``encoder``, strictly: every key must match."""
     encoder.load_state_dict(torch.load(path, map_location="cpu", weights_only=True), strict=True)
     return encoder
+
+
+def import_torch_resnet(
+    pth_path_or_state: Union[str, Mapping[str, Any]],
+    backbone_state: Mapping[str, torch.Tensor],
+    strict: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """``backbone_state`` (the encoder's ``main_encoder.state_dict()``) with
+    every entry that a torchvision ResNet state dict (a ``.pth`` path or a
+    mapping) supplies replaced, cast to the entry's dtype: convolutions,
+    BatchNorm weight / bias / running statistics, downsample branches, and
+    ``fc1.*`` onto the feature head. ``fc.*`` (torchvision's classifier) and
+    ``num_batches_tracked`` are skipped; any other key, or one the backbone
+    lacks, is unmatched, which raises under ``strict``. A shape that does
+    not fit raises."""
+    if isinstance(pth_path_or_state, str):
+        state = torch.load(pth_path_or_state, map_location="cpu", weights_only=True)
+        if hasattr(state, "state_dict"):
+            state = state.state_dict()
+    else:
+        state = dict(pth_path_or_state)
+    out = {k: v.detach().clone() for k, v in backbone_state.items()}
+    unmatched = []
+    for key, value in state.items():
+        if key.startswith("fc.") or key.endswith(".num_batches_tracked"):
+            continue
+        if key not in out:  # the port's backbone keys are torchvision's names
+            unmatched.append(key)
+            continue
+        value = torch.as_tensor(value)
+        if tuple(value.shape) != tuple(out[key].shape):
+            raise ValueError(f"torch {key} {tuple(value.shape)} does not fit the backbone's {tuple(out[key].shape)}")
+        out[key] = value.detach().to(dtype=out[key].dtype, device=out[key].device).clone()
+    if strict and unmatched:
+        raise KeyError(f"unmatched torch keys: {unmatched}")
+    return out

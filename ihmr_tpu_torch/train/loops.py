@@ -3,7 +3,9 @@ baseline evaluation and the IHMR-OPT runner, the last two ending in an
 ``Evaluator``.
 
 ``train_baseline_loop`` takes a loader of ``BaselineBatch``es with ``len``
-and ``set_epoch`` (``data.BatchList``). ``test_baseline_loop`` and
+and ``set_epoch`` (``data.BatchList``, or a dataset's ``BatchLoader`` behind
+``BatchAdapter(loader, _to_baseline_batch, device)``); the MLP loops take
+``MLPBatch``es the same way (``_to_mlp_batch``). ``test_baseline_loop`` and
 ``optimize_loop`` take, as the JAX loops do, any iterable of raw batch
 dicts with the datasets' keys (numpy arrays; ``_to_baseline_batch`` and
 ``_to_opt_batch`` say which) and a ``dataset`` whose ``data_list`` names the
@@ -14,7 +16,8 @@ visualizer hook of the training loop (``utils/``).
 from __future__ import annotations
 
 import os.path as osp
-from typing import Dict, List, Optional, Sequence, Tuple
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -23,6 +26,7 @@ from ihmr_tpu_torch.device import DeviceLike, resolve_device
 from ihmr_tpu_torch.eval import Evaluator, evaluator_for, results_to_host
 from ihmr_tpu_torch.mano.model import ManoModel
 from ihmr_tpu_torch.refine.adam import Adam
+from ihmr_tpu_torch.refine.mlp_engine import MLPBatch
 from ihmr_tpu_torch.refine.opt_engine import OptBatch, OptConfig, ParamDict, optimize_batch, params_from_init
 from ihmr_tpu_torch.refine.schedule import Stage
 from ihmr_tpu_torch.train import checkpoint as ckpt
@@ -90,6 +94,73 @@ def _to_opt_batch(batch: Dict[str, np.ndarray], device: DeviceLike = None) -> Tu
     return params, opt_batch
 
 
+def _to_mlp_batch(batch: Dict[str, np.ndarray], device: DeviceLike = None) -> MLPBatch:
+    """A raw MLP-dataset batch (the keys of ``_to_opt_batch`` without
+    init_hand_trans_j, plus img_feat and index) as an MLPBatch on ``device``."""
+    dev = resolve_device(device)
+
+    def t(key):
+        return torch.as_tensor(np.asarray(batch[key]), device=dev)
+
+    init_trans = np.asarray(batch["init_hand_trans"])
+    return MLPBatch(
+        hand_type_array=t("hand_type_array"),
+        hand_type_valid=t("hand_type_valid"),
+        joints_2d=t("joints_2d"),
+        joints_3d=t("joints_3d"),
+        gt_pose_params=t("mano_pose"),
+        gt_shape_params=t("mano_betas"),
+        mano_params_weight=t("mano_params_weight"),
+        hand_trans=t("hand_trans"),
+        img_feat=t("img_feat"),
+        init_joints_2d=t("init_joints_2d"),
+        init_joints_3d=t("init_joints_3d"),
+        init_cam=t("init_cam"),
+        init_pose_params=t("init_pose_params"),
+        init_shape_params=t("init_shape_params"),
+        init_hand_trans=torch.as_tensor(init_trans.reshape(init_trans.shape[0], -1)[:, :3], device=dev),
+        index=torch.as_tensor(np.asarray(batch["index"], np.int64), device=dev),
+    )
+
+
+class BatchAdapter:
+    """A loader of raw dataset batches (``data.BatchLoader``) seen as the
+    loader a loop takes: each batch passed through ``convert(raw, device)``
+    (``_to_baseline_batch``, ``_to_mlp_batch``; None: the raw dict as it is),
+    with the wrapped loader's ``len``, ``set_epoch`` and ``batch_size``.
+    ``data_seconds`` adds up the host time spent waiting for batches and
+    converting them, over every pass."""
+
+    def __init__(self, loader, convert: Optional[Callable] = None, device: DeviceLike = None):
+        self.loader = loader
+        self.convert = convert
+        self.device = resolve_device(device) if convert is not None else None
+        self.data_seconds = 0.0
+
+    def __len__(self) -> int:
+        return len(self.loader)
+
+    @property
+    def batch_size(self) -> int:
+        return self.loader.batch_size
+
+    def set_epoch(self, epoch: int) -> None:
+        self.loader.set_epoch(epoch)
+
+    def __iter__(self):
+        it = iter(self.loader)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                raw = next(it)
+            except StopIteration:
+                self.data_seconds += time.perf_counter() - t0
+                return
+            batch = raw if self.convert is None else self.convert(raw, self.device)
+            self.data_seconds += time.perf_counter() - t0
+            yield batch
+
+
 def _state_info(state: BaselineState, epoch: int) -> Dict:
     adam = state.adam
     return {"epoch": epoch, "lr": state.lr, "adam": {"t": adam.t, "m": adam.m, "v": adam.v}}
@@ -148,8 +219,9 @@ def train_baseline_loop(
     Each step's losses are read to the host in one transfer, which also ends
     the step's device work, so ``TimeStat``'s forward time is the steps'
     time. ``epoch_stats``, when given, receives per epoch: "epoch",
-    "step_seconds" (data + forward time, the checkpoint excluded), "steps"
-    and "total_loss" (each step's)."""
+    "step_seconds" (data + forward time, the checkpoint excluded), its split
+    "data_seconds" / "forward_seconds" (``TimeStat``), "steps" and
+    "total_loss" (each step's)."""
     loss_stat = LossStat(len(loader))
     time_stat = TimeStat(config.total_epoch)
     for epoch in range(start_epoch, config.total_epoch + 1):
@@ -174,6 +246,7 @@ def train_baseline_loop(
         if epoch_stats is not None:
             epoch_stats.append(dict(
                 epoch=epoch, step_seconds=time_stat.data_time + time_stat.forward_time,
+                data_seconds=time_stat.data_time, forward_seconds=time_stat.forward_time,
                 steps=len(step_losses), total_loss=step_losses,
             ))
         if is_main:

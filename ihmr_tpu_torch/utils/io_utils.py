@@ -1,8 +1,7 @@
 """Host-side file IO helpers (a copy of ihmr_tpu/utils/io_utils.py).
 
-The part of the reference's external ``ry_utils`` package that the
-evaluation and the run loops use: pickle load/save, directories, obj mesh
-export and import.
+The reference's external ``ry_utils`` package as the port uses it: pickle
+load/save, directories, recursive file listing, obj mesh export and import.
 """
 
 from __future__ import annotations
@@ -10,6 +9,7 @@ from __future__ import annotations
 import os
 import os.path as osp
 import pickle
+import shutil
 from typing import Any, List
 
 import numpy as np
@@ -33,9 +33,38 @@ def build_dir(path: str) -> str:
     return path
 
 
+def renew_dir(path: str) -> str:
+    """rm -rf + mkdir."""
+    if osp.exists(path):
+        shutil.rmtree(path)
+    os.makedirs(path)
+    return path
+
+
 def make_subdir(file_path: str) -> None:
     """Create the directory that will contain ``file_path``."""
     build_dir(osp.dirname(file_path))
+
+
+def get_all_files(root: str, suffix: str = "", path_type: str = "full") -> List[str]:
+    """Recursively list files under ``root`` ending with ``suffix``, sorted.
+
+    ``path_type``: 'full' returns root-joined paths, 'name' basenames,
+    anything else paths relative to root.
+    """
+    results = []
+    for subdir, _dirs, files in os.walk(root):
+        for name in sorted(files):
+            if suffix and not name.endswith(suffix):
+                continue
+            full = osp.join(subdir, name)
+            if path_type == "full":
+                results.append(full)
+            elif path_type == "name":
+                results.append(name)
+            else:
+                results.append(osp.relpath(full, root))
+    return sorted(results)
 
 
 def save_mesh_to_obj(path: str, verts: np.ndarray, faces: np.ndarray | None = None) -> None:
