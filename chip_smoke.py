@@ -78,7 +78,26 @@ Phases (each raises on failure; any failure exits non-zero before the last line)
    Then ``optimize`` on a 4-sample corpus on the card and on the CPU, the
    metrics within pipeline.SHORT_EVAL_RTOL and the params within
    SMALL_PARAM_TOL; and neither cv2 nor PIL imported.
-8. Small inputs held against the CPU: optimize_batch at B=2 with a short
+8. IHMR-Baseline training as ``scripts/train_baseline.sh`` runs it, from
+   JPEG files decoded by the port: first the committed fixtures of
+   ``tests/data/jpeg/`` against the digests of cv2's results
+   (``data.image_cases.check_fixtures``: each JPEG decoded byte for byte;
+   warpAffine at the ten angles of random_rotate, BGR <-> HSV and three
+   colour jitters byte for byte; filter2D with each PSF within 1 on at most
+   1e-4 of the values), and each step's host ms per image (JPEG decode,
+   rotation, colour jitter, the HSV conversions, filter2D per PSF, the
+   letterbox, the normalization). Then phase 7's corpus (N=256,
+   ``write_corpus`` seed 0) with each image a copy of the committed JPEG
+   of its shape (``synthetic.use_jpeg_images``), two motion-blur PSFs
+   (``synthetic.write_blur_kernels``: 15x15 and 31x31 line kernels, the
+   reference's ``.mat`` schema), and ``IHMR_BN_IMPL=pallas train-baseline``
+   with every data flag of the launcher (flip, rescale, position, rotation,
+   colour jitter, motion blur with ``--blur_kernel_dir``), B=64, one epoch
+   of 4 steps: K3 53 a step asserted, losses finite, ms/step and images/sec
+   beside phase 7's PNG run and phase 5's replayed batch. Then
+   ``test-baseline`` on the same files (K1 one a batch, K3 0, metrics
+   finite), and neither cv2 nor PIL imported.
+9. Small inputs held against the CPU: optimize_batch at B=2 with a short
    schedule, pipeline.run_short_opt_eval (optimize_loop at B=2, 4 x 21
    steps), pipeline.run_short_mlp (three stages, one epoch, N=4) and
    pipeline.run_short_train (ResNet-18 at 64x64, B=4, two steps), on the
@@ -898,6 +917,118 @@ def phase_cli_chain(dev, replayed_ms_per_step):
         finally:
             os.chdir(cwd)
     log("  metric_dict of the command line's evaluations: " + json.dumps(metrics))
+    return counts, step_ms
+
+
+def _host_ms(fn, reps):
+    """Host ms per call of ``fn`` over ``reps`` calls after one untimed call."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _time_jpeg_and_augmentations(smi):
+    """Host ms per image of the JPEG decode and of each augmentation, on the
+    augmentation cases' input (a corpus JPEG letterboxed to 224x224)."""
+    import random
+
+    from ihmr_tpu_torch.data import cv_ops, image_io
+    from ihmr_tpu_torch.data import preprocess as pp
+    from ihmr_tpu_torch.data.image_cases import FIXTURE_DIR, augmentation_input
+    from ihmr_tpu_torch.data.synthetic import BLUR_PSFS, CORPUS_SHAPES, motion_psf
+
+    files = [os.path.join(FIXTURE_DIR, f"corpus_{h}x{w}.jpg") for h, w in CORPUS_SHAPES]
+    decoded = image_io.imread(files[0])
+    src = augmentation_input()
+    angles = [180.0 / 10 * i - 90 for i in range(10)]
+    rng = random.Random(0)
+    times = {
+        "JPEG decode (256x192 / 192x256, 4:2:0)": _host_ms(lambda: [image_io.imread(f) for f in files], 64) / 2,
+        "rotate_image (warpAffine, the ten angles in turn)": _host_ms(
+            lambda: [pp.rotate_image(src, a) for a in angles], 16) / 10,
+        "color_jitter": _host_ms(lambda: pp.color_jitter(src, rng), 64),
+        "BGR -> HSV": _host_ms(lambda: cv_ops.bgr_to_hsv(src), 64),
+        "HSV -> BGR": _host_ms(lambda: cv_ops.hsv_to_bgr(src), 64),
+        **{f"filter2d {size}x{size} PSF": _host_ms(lambda k=motion_psf(size, angle): cv_ops.filter2d(src, k), 64)
+           for size, angle in BLUR_PSFS},
+        "padding_and_resize (256x192 -> 224x224)": _host_ms(
+            lambda: pp.padding_and_resize(decoded, np.zeros((42, 3), np.float32), 224), 64),
+        "normalize_image": _host_ms(lambda: pp.normalize_image(src), 64),
+    }
+    log(f"  host ms per image on this card's host ({smi}; numpy {np.__version__}), 224x224x3 unless named: "
+        + "; ".join(f"{name} {ms:.4f}" for name, ms in times.items()))
+    return times
+
+
+def phase_cli_jpeg(dev, smi, replayed_ms_per_step, png_ms_per_step):
+    """IHMR-Baseline training as scripts/train_baseline.sh runs it, from JPEG
+    files: every data flag of the launcher, then test-baseline on the same files."""
+    import tempfile
+
+    from ihmr_tpu_torch.data.image_cases import FIXTURE_DIR, check_fixtures
+    from ihmr_tpu_torch.data.synthetic import BLUR_PSFS, CORPUS_SHAPES, use_jpeg_images, write_blur_kernels, write_corpus
+
+    checked = check_fixtures()
+    log(f"JPEG and augmentations on the card's host: {len(checked['decoded'])} fixtures decode to cv2's bytes "
+        f"({', '.join(checked['decoded'])}); {checked['cases']} augmentation cases give cv2's results (warpAffine at "
+        f"the ten angles, HSV both ways and three colour jitters byte for byte; filter2D max |diff|, share: "
+        + ", ".join(f"{s}x{s} {d} {share:.2e}" for s, (d, share) in checked["filter2d"].items())
+        + ", bound 1 on 1e-4)")
+    times = _time_jpeg_and_augmentations(smi)
+    counts = {}
+    with tempfile.TemporaryDirectory() as work:
+        root, blur = os.path.join(work, "corpus"), os.path.join(work, "blur_kernel")
+        write_corpus(root, CLI_N, seed=0)
+        use_jpeg_images(root, [os.path.join(FIXTURE_DIR, f"corpus_{h}x{w}.jpg") for h, w in CORPUS_SHAPES])
+        write_blur_kernels(blur)
+        log(f"  command line on N={CLI_N} JPEG files (the fixtures, as write_corpus's annotations place them), "
+            f"motion-blur PSFs {', '.join(f'{s}x{s} at {a} deg' for s, a in BLUR_PSFS)} in {blur}")
+        common = ["--data_root", root, "--anno_path", "anno.pkl", "--synthetic_mano", "--batchSize", "64",
+                  "--checkpoints_dir", os.path.join(work, "ckpt"), "--device", "cuda"]
+        cwd = os.getcwd()
+        os.chdir(work)
+        try:
+            os.environ["IHMR_BN_IMPL"] = "pallas"
+            try:
+                # scripts/train_baseline.sh's flags, its epochs cut to one (4 steps)
+                train, counts["cli_jpeg_train"], sec = _cli(
+                    ["train-baseline", "--lr", "1e-4", "--lr_decay_type", "cosine", "--total_epoch", "1",
+                     "--save_epoch_freq", "1", "--use_random_flip", "--use_random_rescale", "--use_random_position",
+                     "--use_random_rotation", "--use_color_jittering", "--use_motion_blur", "--blur_kernel_dir", blur]
+                    + common)
+            finally:
+                del os.environ["IHMR_BN_IMPL"]
+            (epoch,) = train["epoch_stats"]
+            steps = epoch["steps"]
+            step_ms = epoch["step_seconds"] / steps * 1e3
+            log(f"  train-baseline with every augmentation, JPEG: {sec:.3f}s wall; {steps} steps, TimeStat data "
+                f"{epoch['data_seconds']:.3f}s, forward {epoch['forward_seconds']:.3f}s -> {step_ms:.3f} ms/step, "
+                f"{64e3 / step_ms:.3f} images/sec, on {smi}; in this run: phase 7's PNG files (flip, rescale, "
+                f"position) {png_ms_per_step:.3f} ms/step, {64e3 / png_ms_per_step:.3f} images/sec; phase 5's "
+                f"replayed batch {replayed_ms_per_step:.3f} ms/step, {64e3 / replayed_ms_per_step:.3f} images/sec; "
+                f"total loss {epoch['total_loss']}; launches {counts['cli_jpeg_train']}")
+            check_counts("train-baseline (JPEG)", counts["cli_jpeg_train"], exact_collision=0, nearest_centroid=0,
+                         bn_stats=53 * steps)
+            if steps != CLI_N // 64 or not np.isfinite(epoch["total_loss"]).all():
+                raise AssertionError(f"train-baseline (JPEG) ran {steps} steps, losses {epoch['total_loss']}")
+            out, counts["cli_jpeg_test"], sec = _cli(["test-baseline"] + common)
+            log(f"  test-baseline, JPEG: {sec:.3f}s wall, {out['seconds']:.3f}s in its loop: data "
+                f"{out['data_seconds']:.3f}s, the rest {out['forward_seconds']:.3f}s; launches {counts['cli_jpeg_test']}")
+            # one eval_step per batch: one exact pass, eval-mode BatchNorm
+            check_counts("test-baseline (JPEG)", counts["cli_jpeg_test"], exact_collision=CLI_N // 64,
+                         nearest_centroid=0, bn_stats=0)
+            if len(out["evaluator"].pred_results) != CLI_N:
+                raise AssertionError(f"test-baseline (JPEG): {len(out['evaluator'].pred_results)} results")
+            _check_metrics("test-baseline (JPEG)", out["evaluator"])
+        finally:
+            os.chdir(cwd)
+    loaded = [m for m in ("cv2", "PIL") if m in sys.modules]
+    log(f"  image libraries imported in this run: {loaded or 'none'} (cv2 and PIL must not be); host ms: "
+        + json.dumps({k: round(v, 4) for k, v in times.items()}))
+    if loaded:
+        raise AssertionError(f"{loaded} imported")
     return counts
 
 
@@ -955,7 +1086,8 @@ def main():
     opt_eval_counts, opt_eval_md = phase_opt_eval(dev)
     log("metric_dict of the three evaluation loops: " + json.dumps(
         {"optimize_loop": opt_eval_md, "test_baseline_loop": train["baseline_md"], "test_mlp_loop": mlp_md}))
-    cli_counts = phase_cli_chain(dev, train["ms_per_step"])
+    cli_counts, png_ms_per_step = phase_cli_chain(dev, train["ms_per_step"])
+    cli_counts.update(phase_cli_jpeg(dev, smi, train["ms_per_step"], png_ms_per_step))
     phase_cli_small(dev)
     phase_small_input(dev)
     phase_small_eval(dev)
@@ -968,7 +1100,8 @@ def main():
     # just after it; "launches" is their sum and "launches_by_path" keeps them
     # apart (opt: the timed OPT run; opt_eval: optimize_loop; mlp: the timed
     # MLP run; train: the 20 train steps and one eval_step; baseline_eval:
-    # test_baseline_loop; cli_*: each command of the command line). K1's and
+    # test_baseline_loop; cli_*: each command of the command line, cli_jpeg_*
+    # the two on JPEG files with every augmentation). K1's and
     # K2's times are one launch at the main path's shape; K3's are the sum
     # over the 53 launches of one train step ("ms_basis"). "ms" is device
     # time alone.

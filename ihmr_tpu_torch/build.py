@@ -7,11 +7,15 @@ and the flags, so an unchanged source is built once. Building happens at
 first use (``load_library``) or up front for every source in parallel
 (``build_all``, one ``nvcc`` process per source).
 
-The host data kernels (``csrc/data_kernels.cpp``: the letterbox and the PNG
-row filters) are compiled by ``g++`` with the JAX package's flags
-(``-march=native``) at first use (``load_host_library``); their library name
-also hashes the host CPU's identity, so a build directory copied to another
-machine is rebuilt there. A failed build raises.
+The host sources (``csrc/data_kernels.cpp``: the letterbox and the PNG row
+filters; ``csrc/image_ops.cpp``: OpenCV's warp, HSV conversions and
+``filter2D``; ``csrc/jpeg_decode.cpp``: the JPEG decoder) are compiled by
+``g++`` at first use (``load_host_library``), the first with the JAX
+package's flags (``-march=native``), the other two also with
+``-ffp-contract=off`` so that no multiply-add is fused unless the source
+asks for it and their bytes are the same on every host. A host library's
+name also hashes the host CPU's identity, so a build directory copied to
+another machine is rebuilt there. A failed build raises.
 
     python -m ihmr_tpu_torch.build     # build every kernel, print ptxas usage
 """
@@ -45,8 +49,14 @@ NVCC_FLAGS = [
 ]
 
 # host kernel name -> C++ source, relative to the package
-HOST_SOURCES: Dict[str, str] = {"data_kernels": "csrc/data_kernels.cpp"}
+HOST_SOURCES: Dict[str, str] = {
+    "data_kernels": "csrc/data_kernels.cpp",
+    "image_ops": "csrc/image_ops.cpp",
+    "jpeg_decode": "csrc/jpeg_decode.cpp",
+}
 GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17", "-pthread"]
+# host sources whose arithmetic must not depend on the compiler's choice to fuse
+NO_CONTRACTION = ("image_ops", "jpeg_decode")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _functions: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
@@ -135,9 +145,13 @@ def _cpu_identity() -> bytes:
         return b""
 
 
+def host_flags(name: str) -> List[str]:
+    return GXX_FLAGS + (["-ffp-contract=off"] if name in NO_CONTRACTION else [])
+
+
 def host_library_path(name: str) -> Path:
     src = (PACKAGE_DIR / HOST_SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(GXX_FLAGS).encode() + _cpu_identity()).hexdigest()[:12]
+    digest = hashlib.sha256(src + " ".join(host_flags(name)).encode() + _cpu_identity()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -152,7 +166,7 @@ def load_host_library(name: str) -> ctypes.CDLL:
                 raise RuntimeError(f"g++ not found: cannot build {HOST_SOURCES[name]}")
             out.parent.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run([gxx, *GXX_FLAGS, str(PACKAGE_DIR / HOST_SOURCES[name]), "-o", str(tmp)],
+            proc = subprocess.run([gxx, *host_flags(name), str(PACKAGE_DIR / HOST_SOURCES[name]), "-o", str(tmp)],
                                   capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"building {HOST_SOURCES[name]} failed (g++ exited {proc.returncode}):\n"

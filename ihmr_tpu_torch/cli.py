@@ -41,11 +41,10 @@ import numpy as np
 
 # what each refused subcommand or flag waits for: its ROADMAP.md item
 _ROADMAP = {
-    "augment": "ROADMAP.md Queue 1, item 1 (rotation, colour-jitter and motion-blur augmentations)",
-    "collision": "ROADMAP.md Queue 1, item 3 (the other in-loop collision paths)",
-    "bf16": "ROADMAP.md Queue 1, item 4 (bf16 training)",
-    "utils": "ROADMAP.md Queue 1, item 5 (utils/: rendering, the visualizer and the live monitor)",
-    "serve": "ROADMAP.md Queue 1, item 6 (serve and the tracker)",
+    "collision": "ROADMAP.md Queue 1, item 1 (the other in-loop collision paths)",
+    "bf16": "ROADMAP.md Queue 1, item 2 (bf16 training)",
+    "utils": "ROADMAP.md Queue 1, item 3 (utils/: rendering, the visualizer and the live monitor)",
+    "serve": "ROADMAP.md Queue 1, item 4 (serve and the tracker)",
     "multicard": "ROADMAP.md Queue 1, the slice with more than one card (parallel/, --rank/--world_size)",
 }
 
@@ -64,9 +63,6 @@ def _check_flags(args) -> None:
         _refuse("--display_freq > 0 / --live_port >= 0", "utils")
     if getattr(args, "visualize_eval", False):
         _refuse("--visualize_eval", "utils")
-    for flag in ("use_random_rotation", "use_color_jittering", "use_motion_blur"):
-        if getattr(args, flag, False):
-            _refuse(f"--{flag}", "augment")
     if getattr(args, "loop_collision_backend", "fast") == "grid":
         _refuse("--loop_collision_backend grid", "collision")
     if getattr(args, "escalate_collision", 0.0) > 0:
@@ -180,7 +176,9 @@ def cmd_train_baseline(args):
     cfg = _data_config(
         args, input_size=args.inputSize, is_train=True,
         use_random_flip=args.use_random_flip, use_random_rescale=args.use_random_rescale,
-        use_random_position=args.use_random_position, blur_kernel_dir=args.blur_kernel_dir,
+        use_random_position=args.use_random_position, use_random_rotation=args.use_random_rotation,
+        use_color_jittering=args.use_color_jittering, use_motion_blur=args.use_motion_blur,
+        blur_kernel_dir=args.blur_kernel_dir,
     )
     # a comma list of annotation pkls -> composed multi-dataset training
     anno_paths = [p for p in args.anno_path.split(",") if p]
@@ -392,7 +390,7 @@ def build_parser() -> argparse.ArgumentParser:
         "use_random_rotation", "use_color_jittering", "use_motion_blur",
     ):
         p.add_argument(f"--{flag}", action="store_true")
-    p.add_argument("--blur_kernel_dir", default="")
+    p.add_argument("--blur_kernel_dir", default="", help="directory of .mat point-spread functions (PSFs)")
     p.set_defaults(func=cmd_train_baseline)
 
     p = sub.add_parser("test-baseline")

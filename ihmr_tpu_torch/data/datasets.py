@@ -12,18 +12,19 @@ ihmr_tpu/data/datasets.py).
 
 Items are numpy dicts with the JAX package's keys, shapes and dtypes. The
 augmentation RNG is ``random.Random(seed)``, drawn in the JAX package's
-order, so one seed flips and rescales the same samples in both packages.
+order, so one seed augments the same samples the same way in both packages.
 Single-hand left samples are always flipped to right (train and eval); eval
 datasets pad to a multiple of batch * world_size by repeating the first
 sample (``num_add``).
 
-Images are read by ``image_io.imread`` (PNG decoded by the port; JPEG needs
-cv2). ``BaselineDataset`` letterboxes with ``preprocess.padding_and_resize``;
-the prediction datasets with the native letterbox
-(``native.letterbox_normalize``), as the JAX package does when its native
-library is built: the port has no other path there and raises if the
-library cannot be built. Not ported yet: the rotation, colour-jitter and
-motion-blur augmentations (a config that asks for them raises).
+Images are read by ``image_io.imread`` (PNG and JPEG decoded by the port).
+``BaselineDataset`` letterboxes with ``preprocess.padding_and_resize`` and,
+in training, applies the switched-on augmentations after it in the JAX
+package's order: flip, rescale, rotation, colour jitter, motion blur (the
+blur kernels loaded once from ``blur_kernel_dir``). The prediction
+datasets letterbox with the native kernel (``native.letterbox_normalize``),
+as the JAX package does when its native library is built: the port has no
+other path there and raises if the library cannot be built.
 """
 
 from __future__ import annotations
@@ -39,8 +40,6 @@ from ihmr_tpu_torch.data import native
 from ihmr_tpu_torch.data import preprocess as pp
 from ihmr_tpu_torch.data.image_io import imread
 from ihmr_tpu_torch.utils import io_utils
-
-_UNPORTED_AUGMENTATIONS = ("use_random_rotation", "use_color_jittering", "use_motion_blur")
 
 
 @dataclass
@@ -146,12 +145,10 @@ class BaselineDataset:
     name = "hand26m"
 
     def __init__(self, config: DataConfig, seed: int = 0):
-        unported = [flag for flag in _UNPORTED_AUGMENTATIONS if getattr(config, flag)]
-        if unported:
-            raise NotImplementedError(f"DataConfig {unported}: those augmentations are not ported yet")
         self.config = config
         self.image_root = osp.join(config.data_root, config.image_root)
         self.rng = random.Random(seed)
+        self.blur_kernels = pp.load_blur_kernels(config.blur_kernel_dir) if config.use_motion_blur else []
         self.data_list: List[dict] = []
         self.num_add = 0
 
@@ -177,7 +174,8 @@ class BaselineDataset:
         return single
 
     def _preprocess(self, img, hand_type_array, joints_2d, joints_3d, pose, betas, weight):
-        """The augmentation pipeline: letterbox, flip, rescale, normalize joints."""
+        """The augmentation pipeline: letterbox, flip, rescale, rotation, colour
+        jitter, motion blur, normalize joints."""
         cfg = self.config
         img, joints_2d = pp.padding_and_resize(img, joints_2d, cfg.input_size)
         do_flip = False
@@ -197,6 +195,12 @@ class BaselineDataset:
             img, joints_2d = pp.random_rescale(
                 img, joints_2d, self.rng, cfg.input_size, use_random_position=cfg.use_random_position
             )
+        if cfg.is_train and cfg.use_random_rotation:
+            img, joints_2d, joints_3d, pose = pp.random_rotate(img, joints_2d, joints_3d, pose, self.rng)
+        if cfg.is_train and cfg.use_color_jittering:
+            img = pp.color_jitter(img, self.rng)
+        if cfg.is_train and cfg.use_motion_blur:
+            img = pp.add_motion_blur(img, self.blur_kernels, self.rng, cfg.motion_blur_prob)
         joints_2d = pp.normalize_joints_2d(joints_2d, cfg.input_size)
         return img, hand_type_array, joints_2d, joints_3d, pose, betas, weight, do_flip
 

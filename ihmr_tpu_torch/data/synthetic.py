@@ -18,7 +18,10 @@ replays pre-built batches as the loader of the MLP and baseline loops;
 ``opt_raw_batch`` and ``baseline_raw_batch`` turn batches into the raw
 dataset dicts that ``optimize_loop`` and ``test_baseline_loop`` read;
 ``write_corpus`` writes the same draws as files the datasets and the CLI
-read (PNG images, an annotation pkl and a prediction pkl).
+read (PNG images, an annotation pkl and a prediction pkl);
+``use_jpeg_images`` points such a corpus at JPEG files of the same shapes;
+``write_blur_kernels`` writes two motion-blur point-spread functions
+(``motion_psf``) as the ``.mat`` files ``--blur_kernel_dir`` reads.
 
 Not ported yet: the interlocked, grazing and single-hand variants.
 """
@@ -26,8 +29,9 @@ Not ported yet: the interlocked, grazing and single-hand variants.
 from __future__ import annotations
 
 import dataclasses
+import os
 import os.path as osp
-from typing import Dict, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -287,5 +291,71 @@ def write_corpus(root: str, n: int, seed: int = 0) -> None:
             joints_3d=d["init_j3"][i],
             img_feat=np.abs(rng.randn(1024)).astype(np.float32),
         )
+    io_utils.save_pkl(osp.join(root, "anno.pkl"), annos)
+    io_utils.save_pkl(osp.join(root, "pred.pkl"), preds)
+
+
+# the motion-blur point-spread functions of the JPEG runs: (size, angle in degrees)
+BLUR_PSFS = ((15, 30.0), (31, 120.0))
+
+
+def motion_psf(size: int, angle_deg: float) -> np.ndarray:
+    """A (size, size) float32 straight-line motion kernel through the centre
+    at ``angle_deg``, as long as the kernel is wide, bilinearly splatted and
+    normalised to sum 1."""
+    k = np.zeros((size, size), np.float64)
+    c = (size - 1) / 2.0
+    t = np.linspace(-c, c, 8 * size)
+    a = np.deg2rad(angle_deg)
+    x, y = c + t * np.cos(a), c - t * np.sin(a)
+    x0, y0 = np.floor(x).astype(int), np.floor(y).astype(int)
+    fx, fy = x - x0, y - y0
+    for dy, dx, w in ((0, 0, (1 - fx) * (1 - fy)), (0, 1, fx * (1 - fy)), (1, 0, (1 - fx) * fy), (1, 1, fx * fy)):
+        yy, xx = np.clip(y0 + dy, 0, size - 1), np.clip(x0 + dx, 0, size - 1)
+        np.add.at(k, (yy, xx), w)
+    return (k / k.sum()).astype(np.float32)
+
+
+def write_blur_kernels(directory: str) -> List[str]:
+    """``BLUR_PSFS`` as ``psf_<size>.mat`` files in the reference's schema
+    (``PSFs``, a 1 x 1 MATLAB cell holding the kernel); returns their paths."""
+    from scipy.io import savemat
+
+    os.makedirs(directory, exist_ok=True)
+    paths = []
+    for size, angle in BLUR_PSFS:
+        cell = np.empty((1, 1), dtype=object)
+        cell[0, 0] = motion_psf(size, angle)
+        paths.append(osp.join(directory, f"psf_{size}.mat"))
+        savemat(paths[-1], {"PSFs": cell})
+    return paths
+
+
+def use_jpeg_images(root: str, jpeg_files: Sequence[str]) -> None:
+    """Point a corpus written by ``write_corpus`` at JPEG files: each image
+    is replaced by a copy of the first of ``jpeg_files`` with its shape (as
+    decoded), ``img_{i:05d}.jpg``, and ``anno.pkl`` and ``pred.pkl`` are
+    rewritten to name it."""
+    import shutil
+
+    from ihmr_tpu_torch.data.image_io import imread
+    from ihmr_tpu_torch.utils import io_utils
+
+    by_shape = {}
+    for path in jpeg_files:
+        by_shape.setdefault(imread(path).shape[:2], path)
+    img_dir = osp.join(root, "hand26m", "image")
+    annos = io_utils.load_pkl(osp.join(root, "anno.pkl"))
+    preds = io_utils.load_pkl(osp.join(root, "pred.pkl"))
+    for i, anno in enumerate(annos):
+        png = osp.join(img_dir, anno["img_path"])
+        shape = CORPUS_SHAPES[i % len(CORPUS_SHAPES)]
+        if shape not in by_shape:
+            raise ValueError(f"no JPEG of shape {shape} among {list(jpeg_files)}")
+        jpg = anno["img_path"][: -len(".png")] + ".jpg"
+        shutil.copyfile(by_shape[shape], osp.join(img_dir, jpg))
+        os.remove(png)
+        preds[jpg] = preds.pop(anno["img_path"])
+        anno["img_path"] = jpg
     io_utils.save_pkl(osp.join(root, "anno.pkl"), annos)
     io_utils.save_pkl(osp.join(root, "pred.pkl"), preds)

@@ -415,11 +415,27 @@ def test_png_unfilter_rejects_bad_filter():
         native.png_unfilter(rows.tobytes()[:-1], 2, 6, 3)
 
 
-def test_datasets_refuse_unported_augmentations(corpus):
+def test_datasets_refuse_unported_augmentations(corpus, tmp_path):
+    """The three augmentations the port once refused now run: each flag
+    alone, training items of the PNG corpus against the JAX package's with
+    one seed. Bound: images within one uint8 level (filter2D differs from
+    cv2's by 1 on a few values in 10^5; the rest is byte-equal), the rest
+    within 1e-5, the random.Random state equal after the epoch."""
+    from ihmr_tpu_torch.data.synthetic import write_blur_kernels
+
+    write_blur_kernels(str(tmp_path))
     for flag in ("use_random_rotation", "use_color_jittering", "use_motion_blur"):
-        cfg = dataclasses.replace(TD.DataConfig(data_root=corpus, anno_path="anno.pkl"), **{flag: True})
-        with pytest.raises(NotImplementedError, match=flag):
-            TD.BaselineDataset(cfg)
+        extra = dict(blur_kernel_dir=str(tmp_path)) if flag == "use_motion_blur" else {}
+        j, t = _datasets("BaselineDataset", corpus, anno_path="anno.pkl", input_size=64, is_train=True,
+                         **{flag: True}, **extra)
+        for i in range(len(j)):
+            ours, ref = t[i], j[i]
+            assert set(ours) == set(ref)
+            for key in ref:
+                assert ours[key].shape == ref[key].shape and ours[key].dtype == ref[key].dtype, (flag, key)
+                tol = LEVEL + 1e-6 if key == "img" else 1e-5
+                np.testing.assert_allclose(ours[key], ref[key], rtol=0, atol=tol, err_msg=f"{flag} {key}")
+        assert t.rng.getstate() == j.rng.getstate(), flag
 
 
 def test_native_build_failure_raises(tmp_path, monkeypatch):

@@ -1,9 +1,13 @@
 """The port stands alone: ``ihmr_tpu_torch/`` and ``chip_smoke.py`` import
-nothing of jax, flax, optax or the JAX package ``ihmr_tpu`` (an AST scan of
-every import statement, including ones inside functions); and its data
+nothing of jax, flax, optax or the JAX package ``ihmr_tpu``, and neither
+cv2 nor PIL (an AST scan of every import statement, including ones inside
+functions); and its data
 layer and command line run without cv2 or PIL (the card's machine has
 neither): a fresh interpreter where both imports fail reads a PNG corpus
-through every dataset, and a JPEG raises naming the file and cv2."""
+through every dataset, decodes every committed JPEG fixture to the bytes
+cv2 gives and runs the augmentation cases (``image_cases.check_fixtures``),
+trains through the CLI on a JPEG corpus with the rotation, colour-jitter
+and motion-blur flags on, and raises on a broken JPEG, naming the file."""
 
 import ast
 import pathlib
@@ -14,6 +18,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ihmr_tpu")
+IMAGE_LIBRARIES = ("cv2", "PIL")
 SOURCES = sorted((ROOT / "ihmr_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -37,14 +42,23 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_cv2_or_pil_imports(path):
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in IMAGE_LIBRARIES]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
 def test_scan_covers_the_package():
     names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
     assert "chip_smoke.py" in names
     assert {
         "ihmr_tpu_torch/cli.py",
         "ihmr_tpu_torch/core/procrustes.py",
+        "ihmr_tpu_torch/core/rotations.py",
         "ihmr_tpu_torch/data/compose.py",
+        "ihmr_tpu_torch/data/cv_ops.py",
         "ihmr_tpu_torch/data/datasets.py",
+        "ihmr_tpu_torch/data/image_cases.py",
         "ihmr_tpu_torch/data/image_io.py",
         "ihmr_tpu_torch/data/loader.py",
         "ihmr_tpu_torch/data/native.py",
@@ -80,8 +94,9 @@ import torch
 torch.set_num_threads(1)
 import ihmr_tpu_torch.cli
 from ihmr_tpu_torch.data import BaselineDataset, DataConfig, MLPDataset, OPTDataset
+from ihmr_tpu_torch.data.image_cases import FIXTURE_DIR, check_fixtures
 from ihmr_tpu_torch.data.image_io import imread
-from ihmr_tpu_torch.data.synthetic import write_corpus
+from ihmr_tpu_torch.data.synthetic import use_jpeg_images, write_blur_kernels, write_corpus
 
 root = sys.argv[2]
 write_corpus(root, 3, seed=2)
@@ -91,15 +106,27 @@ for cls, extra in ((BaselineDataset, dict(is_train=True, use_random_flip=True, u
     ds.load_data()
     items = [ds[i] for i in range(len(ds))]
     assert all(v.dtype.kind in "fiu" for item in items for v in item.values())
+check_fixtures()
+jpeg_root, blur = os.path.join(root, "jpeg"), os.path.join(root, "blur")
+write_corpus(jpeg_root, 4, seed=3)
+use_jpeg_images(jpeg_root, [os.path.join(FIXTURE_DIR, n) for n in ("corpus_256x192.jpg", "corpus_192x256.jpg")])
+write_blur_kernels(blur)
+out = ihmr_tpu_torch.cli.main([
+    "train-baseline", "--data_root", jpeg_root, "--anno_path", "anno.pkl", "--batchSize", "2", "--synthetic_mano",
+    "--inputSize", "64", "--main_encoder", "resnet18", "--checkpoints_dir", os.path.join(root, "ckpt"),
+    "--device", "cpu", "--total_epoch", "1", "--use_random_flip", "--use_random_rescale", "--use_random_position",
+    "--use_random_rotation", "--use_color_jittering", "--use_motion_blur", "--blur_kernel_dir", blur,
+])
+assert out["epoch_stats"][0]["steps"] == 2, out
 jpg = os.path.join(root, "x.jpg")
 with open(jpg, "wb") as f:
     f.write(bytes([0xFF, 0xD8, 0xFF, 0xE0]) + bytes(16))
 try:
     imread(jpg)
-except RuntimeError as err:
-    assert jpg in str(err) and "cv2" in str(err), err
+except ValueError as err:
+    assert jpg in str(err), err
 else:
-    raise AssertionError("a JPEG without cv2 did not raise")
+    raise AssertionError("a broken JPEG did not raise")
 assert sys.modules["cv2"] is None and sys.modules["PIL"] is None
 print("ok")
 """
