@@ -97,7 +97,39 @@ Phases (each raises on failure; any failure exits non-zero before the last line)
    beside phase 7's PNG run and phase 5's replayed batch. Then
    ``test-baseline`` on the same files (K1 one a batch, K3 0, metrics
    finite), and neither cv2 nor PIL imported.
-9. Small inputs held against the CPU: optimize_batch at B=2 with a short
+9. Serving: ``cli.start_server`` (the serve command up to its blocking
+   loop) on the checkpoint phase 7's ``train-baseline`` wrote, ResNet-50 at
+   224x224, ``--serve_batch 16``, ``--max_wait_ms 10``, synthetic MANO, on
+   an ephemeral port, once in fp32 and once with ``--bf16``; each under
+   ``scripts/serve_bench.py``'s protocol (``pipeline.serve_load`` and its
+   ``SERVE_*`` counts: 30 sequential 8-image octet-stream requests, 5
+   ``.npy`` ones, 3 JSON requests of 3 images, then 8 client threads of 3
+   single-image requests): p50 / p95 / max latency per kind, images/sec,
+   batch_efficiency, batches against requests under the concurrent load
+   (fewer), every response 200, kernel launches 0 from counts zeroed before
+   the server starts, every backbone layer's input in the server's dtype
+   (``pipeline.backbone_input_dtypes``). Each response against the predict
+   function called directly: a whole request (octet-stream, ``.npy``,
+   JSON) on the same batch equal bit for bit; a concurrent single, whose
+   batch held other threads' images, against its image alone padded: fp32
+   within pipeline.PREDICT_TOL, bf16 within the band. The servers' outputs
+   on the 8 images against the CPU's (the same checkpoint): fp32 within
+   PREDICT_TOL, the bf16 params within the band (pipeline.BF16_BAND; the
+   other outputs' band ratios printed), and every bf16 output apart from
+   the fp32 server's.
+10. Tracking: ``TwoHandTracker`` on S=64 streams of the full mesh
+   (``scripts/tracker_study.py``'s S), ``streaming_strategy(30)``,
+   ``OptConfig(save_mid_freq=5)``, blend 0.25, smoothing 0.5; the frames
+   are ``pipeline.make_tracker_frames``, the study's: hands moving by a
+   smoothed random walk at its middle speed, each frame's noisy detection
+   blended into the warm start. One warm-up frame, then 8 timed frames:
+   tracked hands/sec, ms per frame, peak memory, each frame's final mean
+   collision (finite); K1 once per frame, K2 and K3 never.
+11. bf16 training: phase 5's replayed batch with the bf16 encoder
+   (``--bf16``), bn_impl="pallas", 2 warm-up and 20 timed steps; K3 53
+   launches a step, every BatchNorm input bf16; ms/step beside phase 5's
+   fp32; K3 over one step's 53 shapes in bf16 (cold L2) with its bound.
+12. Small inputs held against the CPU: optimize_batch at B=2 with a short
    schedule, pipeline.run_short_opt_eval (optimize_loop at B=2, 4 x 21
    steps), pipeline.run_short_mlp (three stages, one epoch, N=4) and
    pipeline.run_short_train (ResNet-18 at 64x64, B=4, two steps), on the
@@ -106,7 +138,12 @@ Phases (each raises on failure; any failure exits non-zero before the last line)
    trained weights, residuals, cached params and losses within
    pipeline.SHORT_MLP_TOL, accept masks equal; the training's step-1
    metrics, running statistics and params and its step-2 loss within
-   pipeline.SHORT_TRAIN_TOL.
+   pipeline.SHORT_TRAIN_TOL; the predict function (ResNet-18 64x64, B=4) in
+   fp32 within pipeline.PREDICT_TOL and in bf16 within the band, every
+   backbone layer's input bf16 in the bf16 encoder and each bf16 output
+   apart from the fp32 one, with no kernel launched; the tracker (B=2, 2
+   frames of streaming_strategy(6) and a third at its default 4 x 31
+   steps) within SMALL_PARAM_TOL.
 
 The run's time in all is printed beside the card's name and power limit.
 
@@ -122,6 +159,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -294,7 +332,8 @@ def _compare_nearest(q, cent, label, timed=False):
     )
     log(f"  [{label}] nearest library composition, not the same function: "
         f"(|c|^2 - 2 * torch.bmm(q, c^T)).argmin(-1) {composition_ms:.4f} ms")
-    return dict(max_abs_err=err, ms=ms, ms_with_host=host_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return dict(max_abs_err=err, ms=ms, ms_with_host=host_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_composition_ms=composition_ms)
 
 
 def phase_kernels(dev):
@@ -715,10 +754,11 @@ def phase_train_path(dev):
                 stock_ms_per_step=stock_ms, k3_step=bn_step_times(dev, step_shapes))
 
 
-def bn_step_times(dev, step_shapes):
+def bn_step_times(dev, step_shapes, dtype=torch.float32):
     """K3, its plain version and torch.var_mean over one train step's
-    BatchNorm input shapes (random data), summed: the K3 entry's numbers."""
-    log("  bn_stats over one train step's BatchNorm inputs (random data of each shape; device time, cold L2):")
+    BatchNorm input shapes (random data of ``dtype``), summed: the K3 entry's numbers."""
+    log(f"  bn_stats over one train step's BatchNorm inputs (random {str(dtype).replace('torch.', '')} data of each "
+        "shape; device time, cold L2):")
     gen = torch.Generator(device=dev).manual_seed(4)
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
     counts = {}
@@ -726,7 +766,7 @@ def bn_step_times(dev, step_shapes):
         counts[shape] = counts.get(shape, 0) + 1
     events = 0.0
     for shape, n in counts.items():
-        x = torch.randn(shape, generator=gen, device=dev) * 2.0 + 0.5
+        x = (torch.randn(shape, generator=gen, device=dev) * 2.0 + 0.5).to(dtype)
         (k_ms, p_ms, l_ms), ev_ms = _time_bn(x)
         b_ms, _ = _bn_bound_ms(x)
         for key, v in zip(("ms", "plain_ms", "library_ms", "bound_ms"), (k_ms, p_ms, l_ms, b_ms)):
@@ -836,8 +876,9 @@ def _time_decode(img_dir):
         f"{(t2 - t1) / n * 1e3:.4f} ms)")
 
 
-def phase_cli_chain(dev, replayed_ms_per_step):
-    """The five workload commands at full width on a corpus of files."""
+def phase_cli_chain(dev, replayed_ms_per_step, ckpt_dir):
+    """The five workload commands at full width on a corpus of files; the
+    checkpoints go to ``ckpt_dir`` (the serving phase serves them)."""
     import tempfile
 
     from ihmr_tpu_torch.data.synthetic import write_corpus
@@ -851,7 +892,7 @@ def phase_cli_chain(dev, replayed_ms_per_step):
         log(f"  corpus written in {time.perf_counter() - t0:.2f}s")
         _time_decode(os.path.join(work, "corpus", "hand26m", "image"))
         common = ["--data_root", os.path.join(work, "corpus"), "--anno_path", "anno.pkl", "--synthetic_mano",
-                  "--checkpoints_dir", os.path.join(work, "ckpt"), "--device", "cuda"]
+                  "--checkpoints_dir", ckpt_dir, "--device", "cuda"]
         pred, pgt = os.path.join(work, "chain_pred.pkl"), os.path.join(work, "pseudo_gt.pkl")
         cwd = os.getcwd()
         os.chdir(work)  # evaluate_results/ is written under the working directory
@@ -1066,6 +1107,220 @@ def phase_cli_small(dev):
         raise AssertionError(f"{loaded} imported")
 
 
+TRACK_STREAMS, TRACK_FRAMES, TRACK_STEPS = 64, 8, 30  # scripts/tracker_study.py's S; 4 x 31 steps a frame
+
+
+def _direct(fn, images, batch):
+    """``fn`` on ``images`` padded to ``batch`` with the first image, as the
+    broker pads -> the rows of ``images``."""
+    pad = np.repeat(images[:1], batch - len(images), axis=0)
+    return {k: v[: len(images)] for k, v in fn(np.concatenate([images, pad])).items()}
+
+
+def _serve_one(dev, ckpt_dir, bf16, images):
+    """One server (fp32 or --bf16) under serve_load; its responses against
+    the predict function called directly on batches of the same composition."""
+    from ihmr_tpu_torch import cli
+    from ihmr_tpu_torch import pipeline as P
+
+    label = "bf16" if bf16 else "fp32"
+    argv = ["serve", "--checkpoints_dir", ckpt_dir, "--synthetic_mano", "--port", "0", "--device", "cuda",
+            "--inputSize", str(P.SERVE_SIZE)]
+    zero_counts()
+    with P.backbone_input_dtypes() as seen:
+        server = cli.start_server(cli.parse_args(argv + (["--bf16"] if bf16 else [])))
+        try:
+            load = P.serve_load(server.port, images)
+        finally:
+            server.stop()
+    counts = read_counts()
+    dtypes = sorted({str(d).replace("torch.", "") for d in seen})
+    fn, batch = server.batcher.fn, server.batcher.batch_size
+    lat = {kind: [r[0] for r in getattr(load, kind)] for kind in ("octet", "npy", "json", "concurrent")}
+    n_seq = len(load.octet) * len(images)
+    before, after = load.stats_before, load.stats_after
+    batches, requests = after["batches"] - before["batches"], after["requests"] - before["requests"]
+    log(f"  [{label}] ResNet-50 {P.SERVE_SIZE}x{P.SERVE_SIZE}, serve_batch {batch}, max_wait_ms 10; launches "
+        f"{counts}; {len(seen)} backbone layer inputs, dtypes {dtypes}")
+    for kind, n in (("octet", len(images)), ("npy", len(images)), ("json", len(load.json[0][1])), ("concurrent", 1)):
+        log(f"  [{label}] {kind:10s} ({len(lat[kind])} requests of {n} image{'s' if n > 1 else ''}): p50 "
+            f"{P.percentile_ms(lat[kind], 0.5):.3f} ms, p95 {P.percentile_ms(lat[kind], 0.95):.3f} ms, max "
+            f"{max(lat[kind]) * 1e3:.3f} ms")
+    seq_rate = n_seq / sum(lat["octet"])
+    conc_rate = len(load.concurrent) / load.concurrent_seconds
+    log(f"  [{label}] sequential octet-stream: {seq_rate:.3f} images/sec; concurrent ({P.SERVE_THREADS} threads x "
+        f"{P.SERVE_PER_THREAD} single images): "
+        f"{conc_rate:.3f} images/sec over {load.concurrent_seconds:.3f}s, {batches} batches for {requests} requests; "
+        f"batch_efficiency over the whole run {after['batch_efficiency']}")
+    check_counts(f"serve ({label})", counts, exact_collision=0, nearest_centroid=0, bn_stats=0)
+    if not batches < requests:
+        raise AssertionError(f"serve ({label}): {batches} batches for {requests} concurrent requests")
+    if dtypes != (["bfloat16"] if bf16 else ["float32"]):
+        raise AssertionError(f"serve ({label}): the backbone's layers took {dtypes}")
+    # each response against a direct call: the same composition where it is
+    # known (a whole request is one batch), else the image alone, padded
+    same = _direct(fn, images, batch)
+    json_same = _direct(fn, load.json[0][1], batch)
+    gaps = {}  # (kind, output) -> (max |diff|, max ratio to PREDICT_TOL)
+    for kind in ("octet", "npy", "json", "concurrent"):
+        for _, sent, out in getattr(load, kind):
+            ref = same if kind in ("octet", "npy") else json_same if kind == "json" else _direct(fn, sent, batch)
+            for k, v in out.items():
+                g, r = gaps.get((kind, k), (0.0, 0.0))
+                gaps[kind, k] = (max(g, float(np.abs(v - ref[k]).max())),
+                                 max(r, P.allclose_ratio(v, ref[k], **P.PREDICT_TOL)))
+    by_kind = {kind: max(g for (kd, _), (g, _) in gaps.items() if kd == kind) for kind in ("octet", "npy", "json", "concurrent")}
+    log(f"  [{label}] responses vs the predict function called directly, max |diff|: same batch composition "
+        f"(octet {by_kind['octet']:.3e}, npy {by_kind['npy']:.3e}, json {by_kind['json']:.3e}); concurrent singles "
+        f"against the image alone padded with itself {by_kind['concurrent']:.3e}")
+    # a request served as one batch is that batch's direct call, bit for bit
+    unequal = {kd: g for kd, g in by_kind.items() if kd != "concurrent" and g != 0}
+    if unequal:
+        raise AssertionError(f"serve ({label}): responses differ from the same batch called directly: {unequal}")
+    return dict(label=label, counts=counts, lat=lat, seq_rate=seq_rate, conc_rate=conc_rate, same=same,
+                gaps=gaps, stats=after, batches=batches, requests=requests)
+
+
+def phase_serve(dev, ckpt_dir):
+    """The serve command at full width on phase 7's checkpoint, fp32 and --bf16."""
+    from ihmr_tpu_torch import cli
+    from ihmr_tpu_torch.pipeline import BF16_BAND, PREDICT_TOL, SERVE_IMAGES, SERVE_SIZE
+    from ihmr_tpu_torch.pipeline import allclose_ratio, bf16_band_ratios, max_gaps
+
+    log(f"serving: cli.start_server on phase 7's checkpoint ({sorted(os.listdir(ckpt_dir))}), "
+        "scripts/serve_bench.py's protocol")
+    images = np.random.RandomState(0).rand(SERVE_IMAGES, SERVE_SIZE, SERVE_SIZE, 3).astype(np.float32)
+    runs = {bf16: _serve_one(dev, ckpt_dir, bf16, images) for bf16 in (False, True)}
+    # the same checkpoint and images on the CPU: the references of the bounds
+    cpu = {}
+    for bf16 in (False, True):
+        args = cli.parse_args(["serve", "--checkpoints_dir", ckpt_dir, "--synthetic_mano", "--device", "cpu",
+                               "--inputSize", str(SERVE_SIZE)] + (["--bf16"] if bf16 else []))
+        cpu[bf16] = _direct(cli.build_predict(args), images, args.serve_batch)
+    fp32_ratio = max(allclose_ratio(runs[False]["same"][k], v, **PREDICT_TOL) for k, v in cpu[False].items())
+    band = bf16_band_ratios(runs[True]["same"], cpu[True], cpu[False])
+    card_gap = max_gaps(runs[True]["same"], runs[False]["same"])
+    log(f"  card vs CPU on the {SERVE_IMAGES} images: fp32 outputs {fp32_ratio:.4f} of PREDICT_TOL {PREDICT_TOL}; "
+        f"bf16 band ratios (max |card bf16 - CPU bf16| / max |CPU bf16 - CPU fp32|, at most {BF16_BAND}) "
+        + ", ".join(f"{k} {v:.4f}" for k, v in band.items())
+        + "; bf16 server vs fp32 server max |diff| " + ", ".join(f"{k} {v:.3e}" for k, v in card_gap.items()))
+    # a concurrent single shares its batch with other threads' images, not
+    # with copies of itself: it may differ from its direct call at most as
+    # the card may differ from the CPU (fp32 within PREDICT_TOL, bf16 within
+    # the band); the other kinds are held to equality in _serve_one
+    width = max_gaps(cpu[True], cpu[False])
+    bad = [(k, r) for (kind, k), (_, r) in runs[False]["gaps"].items() if kind == "concurrent" and r > 1.0]
+    bad += [(k, g) for (kind, k), (g, _) in runs[True]["gaps"].items()
+            if kind == "concurrent" and g > BF16_BAND * width[k]]
+    # the band holds the bf16 params (976 values); the other outputs' ratios
+    # are printed: hand_type's width is 16 sigmoids' rounding, a few values.
+    # An fp32 encoder would read about 1 on the band too: the dtypes checked
+    # in _serve_one and the gap between the two servers tell it
+    if fp32_ratio > 1.0 or band["params"] > BF16_BAND or bad or not all(g > 0 for g in card_gap.values()):
+        raise AssertionError(f"serving outputs out of bounds: fp32 {fp32_ratio}, band {band}, concurrent {bad[:4]}, "
+                             f"bf16 vs fp32 server {card_gap}")
+    return runs
+
+
+def phase_tracker(dev):
+    """TwoHandTracker on S=64 coherent streams, as scripts/tracker_study.py runs it."""
+    from ihmr_tpu_torch.mano import synthetic_mano_model
+    from ihmr_tpu_torch.pipeline import TRACK_NOISE, TRACK_SPEED, make_tracker_frames, run_tracker
+    from ihmr_tpu_torch.refine import OptConfig, TwoHandTracker, streaming_strategy
+
+    S, frames = TRACK_STREAMS, TRACK_FRAMES
+    mano = synthetic_mano_model(device=dev)
+    tracker = TwoHandTracker(mano, streaming_strategy(TRACK_STEPS), OptConfig(save_mid_freq=5), smoothing=0.5,
+                             blend_with_detection=0.25)
+    inputs = make_tracker_frames(mano, streams=S, frames=frames + 1)
+    log(f"tracking: TwoHandTracker, S={S} streams, streaming_strategy({TRACK_STEPS}), save_mid_freq=5, blend 0.25, "
+        f"smoothing 0.5, full MANO mesh; pipeline.make_tracker_frames (scripts/tracker_study.py's random walk at "
+        f"speed {TRACK_SPEED}, detections its ground truth + {TRACK_NOISE} noise, blended)")
+    t0 = time.perf_counter()
+    warm = run_tracker(tracker, inputs[:1])
+    log(f"  warm-up frame: {time.perf_counter() - t0:.3f}s")
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    run = run_tracker(tracker, inputs[1:], warm.state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    rate = S * frames / wall
+    log(f"  {frames} frames: {wall:.3f}s -> {rate:.3f} tracked hands/sec, {wall / frames * 1e3:.3f} ms per frame "
+        f"(each {', '.join(f'{x * 1e3:.1f}' for x in run.frame_seconds)} ms); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches {counts}")
+    log(f"  final mean collision per frame {[round(c, 6) for c in run.collision]}; frame_idx {run.state.frame_idx}")
+    check_counts("the tracker", counts, exact_collision=frames, nearest_centroid=0, bn_stats=0)
+    if not np.isfinite(run.collision).all() or run.state.frame_idx != frames + 1:
+        raise AssertionError(f"tracker: collision {run.collision}, frame_idx {run.state.frame_idx}")
+    bad = [k for k, v in {**run.state.params, **run.state.ema_params}.items() if not bool(torch.isfinite(v).all())]
+    if bad:
+        raise AssertionError(f"tracker: non-finite params {bad}")
+    return counts, rate
+
+
+def phase_train_bf16(dev, fp32_ms):
+    """The replayed batch of phase 5 in bf16 (--bf16), K3 on bf16 activations."""
+    from ihmr_tpu_torch.models.resnet import BatchNorm
+    from ihmr_tpu_torch.pipeline import make_train_bench_inputs, run_train_pipeline
+
+    log(f"bf16 training: ResNet-50 224x224, B=64, {TRAIN_STEPS} steps, dtype bfloat16 (fp32 master weights), "
+        "bn_impl=pallas (K3 on bf16 activations)")
+    inputs = make_train_bench_inputs(batch=64, image_size=224, arch="resnet50", bn_impl="pallas", device=dev,
+                                     dtype=torch.bfloat16)
+    bns = [m for m in inputs.state.encoder.modules() if isinstance(m, BatchNorm)]
+    seen = []
+    hooks = [m.register_forward_pre_hook(lambda _m, args: seen.append((tuple(args[0].shape), args[0].dtype)))
+             for m in bns]
+    t0 = time.perf_counter()
+    run_train_pipeline(inputs, 2, evaluate=False)
+    log(f"  warm-up (2 steps): {time.perf_counter() - t0:.2f}s")
+    step_shapes = [shape for shape, _ in seen[: len(bns)]]
+    seen.clear()
+    zero_counts()
+    run = run_train_pipeline(inputs, TRAIN_STEPS, evaluate=False)
+    counts = read_counts()
+    for h in hooks:
+        h.remove()
+    ms = run.step_seconds / TRAIN_STEPS * 1e3
+    dtypes = sorted({str(d).replace("torch.", "") for _, d in seen})
+    log(f"  {TRAIN_STEPS} steps: {ms:.3f} ms/step -> {64e3 / ms:.3f} images/sec; fp32 (phase 5, same batch, this "
+        f"run) {fp32_ms:.3f} ms/step, bf16/fp32 {ms / fp32_ms:.4f}; total loss {run.total_loss[0]:.5f} -> "
+        f"{run.total_loss[-1]:.5f}; launches {counts}; BatchNorm inputs {len(seen)}, dtypes {dtypes}")
+    check_counts("bf16 training", counts, exact_collision=0, nearest_centroid=0, bn_stats=53 * TRAIN_STEPS)
+    if len(seen) != 53 * TRAIN_STEPS or dtypes != ["bfloat16"] or not np.isfinite(run.total_loss).all():
+        raise AssertionError(f"bf16 training: {len(seen)} BatchNorm inputs of {dtypes}, losses {run.total_loss}")
+    del inputs, run
+    torch.cuda.empty_cache()
+    return dict(counts=counts, ms_per_step=ms, k3_step=bn_step_times(dev, step_shapes, torch.bfloat16))
+
+
+def phase_small_serve_track(dev):
+    """The predict function and the tracker on small inputs, card against CPU."""
+    from ihmr_tpu_torch.pipeline import BF16_BAND, PREDICT_TOL, allclose_ratio, bf16_band_ratios
+    from ihmr_tpu_torch.pipeline import run_short_predict, run_short_tracker, short_tracker_gap
+
+    zero_counts()
+    gpu = run_short_predict(dev)
+    counts = read_counts()
+    cpu = run_short_predict("cpu")
+    ratio = max(allclose_ratio(gpu["fp32"][k], v, **PREDICT_TOL) for k, v in cpu["fp32"].items())
+    band = bf16_band_ratios(gpu["bf16"], cpu["bf16"], cpu["fp32"])
+    apart = min(float(np.abs(gpu["bf16"][k] - v).max()) for k, v in gpu["fp32"].items())
+    log(f"small predict (ResNet-18 64x64, B=4), card vs CPU: fp32 {ratio:.4f} of PREDICT_TOL; bf16 band ratios "
+        + ", ".join(f"{k} {v:.4f}" for k, v in band.items()) + f" (at most {BF16_BAND}); backbone layer input "
+        f"dtypes card {gpu['dtypes']}, CPU {cpu['dtypes']}; least max |bf16 - fp32| on the card {apart:.3e}; "
+        f"launches {counts}")
+    gap = short_tracker_gap(run_short_tracker(dev), run_short_tracker("cpu"))
+    log(f"small tracker (B=2, 2 frames of streaming_strategy(6) and one of the default 4 x 31 steps), card vs CPU: "
+        f"params and EMA max |diff| {gap:.3e} (tol {SMALL_PARAM_TOL})")
+    check_counts("the small predict", counts, exact_collision=0, nearest_centroid=0, bn_stats=0)
+    dtypes_ok = gpu["dtypes"] == cpu["dtypes"] == {"fp32": ["float32"], "bf16": ["bfloat16"]}
+    if ratio > 1.0 or any(v > BF16_BAND for v in band.values()) or not dtypes_ok or apart == 0 or gap > SMALL_PARAM_TOL:
+        raise AssertionError("the card and the CPU disagree on the small predict or tracker")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1086,13 +1341,18 @@ def main():
     opt_eval_counts, opt_eval_md = phase_opt_eval(dev)
     log("metric_dict of the three evaluation loops: " + json.dumps(
         {"optimize_loop": opt_eval_md, "test_baseline_loop": train["baseline_md"], "test_mlp_loop": mlp_md}))
-    cli_counts, png_ms_per_step = phase_cli_chain(dev, train["ms_per_step"])
-    cli_counts.update(phase_cli_jpeg(dev, smi, train["ms_per_step"], png_ms_per_step))
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        cli_counts, png_ms_per_step = phase_cli_chain(dev, train["ms_per_step"], ckpt_dir)
+        cli_counts.update(phase_cli_jpeg(dev, smi, train["ms_per_step"], png_ms_per_step))
+        serve = phase_serve(dev, ckpt_dir)
+    tracker_counts, _tracked_per_sec = phase_tracker(dev)
+    train_bf16 = phase_train_bf16(dev, train["ms_per_step"])
     phase_cli_small(dev)
     phase_small_input(dev)
     phase_small_eval(dev)
     phase_small_mlp(dev)
     phase_small_train(dev)
+    phase_small_serve_track(dev)
 
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all, kernel builds included, on {smi}")
     print(smi, flush=True)
@@ -1101,12 +1361,16 @@ def main():
     # apart (opt: the timed OPT run; opt_eval: optimize_loop; mlp: the timed
     # MLP run; train: the 20 train steps and one eval_step; baseline_eval:
     # test_baseline_loop; cli_*: each command of the command line, cli_jpeg_*
-    # the two on JPEG files with every augmentation). K1's and
+    # the two on JPEG files with every augmentation; serve, serve_bf16: each
+    # server from its start to its last response; tracker: the 8 timed
+    # frames; train_bf16: the 20 bf16 train steps). K1's and
     # K2's times are one launch at the main path's shape; K3's are the sum
-    # over the 53 launches of one train step ("ms_basis"). "ms" is device
-    # time alone.
+    # over the 53 launches of one train step ("ms_basis"), fp32 and (the
+    # "_bf16" keys) bf16. "ms" is device time alone.
     by_path = dict(opt=opt_counts, opt_eval=opt_eval_counts, mlp=mlp_counts, train=train["counts"],
-                   baseline_eval=train["loop_counts"], **cli_counts)
+                   baseline_eval=train["loop_counts"], **cli_counts, serve=serve[False]["counts"],
+                   serve_bf16=serve[True]["counts"], tracker=tracker_counts, train_bf16=train_bf16["counts"])
+    k3_bf16 = {f"{key}_bf16": v for key, v in train_bf16["k3_step"].items()}
     kernels = [
         dict(name="exact_collision", source="ihmr_tpu_torch/csrc/exact_collision.cu",
              replaces="ihmr_tpu/ops/pallas_collision.py:133", library_ms=None,
@@ -1119,7 +1383,7 @@ def main():
         dict(name="bn_stats", source="ihmr_tpu_torch/csrc/bn_stats.cu", replaces="ihmr_tpu/ops/pallas_bn.py:39",
              max_abs_err=k3_err,
              ms_basis="device time with a cold L2, summed over the 53 launches of one ResNet-50 train step "
-                      "at B=64", **train["k3_step"]),
+                      "at B=64", **train["k3_step"], **k3_bf16),
     ]
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": "cuda", "source": k["source"], "replaces": k["replaces"],
@@ -1127,7 +1391,7 @@ def main():
          "launches_by_path": {path: c[k["name"]] for path, c in by_path.items()}, "max_abs_err": k["max_abs_err"],
          "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
          "library_ms": k["library_ms"], "ms_basis": k["ms_basis"],
-         **({"ms_with_host": k["ms_with_host"]} if "ms_with_host" in k else {})}
+         **{key: v for key, v in k.items() if key.endswith("_bf16") or key in ("ms_with_host", "library_composition_ms")}}
         for k in kernels
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

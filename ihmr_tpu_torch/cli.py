@@ -5,13 +5,19 @@
     python -m ihmr_tpu_torch.cli optimize       --pred_path pred.pkl --export_pseudo_gt pgt.pkl
     python -m ihmr_tpu_torch.cli train-mlp      --pred_path pred.pkl --use_opt_params --opt_params_path pgt.pkl
     python -m ihmr_tpu_torch.cli test-mlp       --pred_path pred.pkl
+    python -m ihmr_tpu_torch.cli serve          --test_epoch latest --port 8080 [--bf16]
 
 The JAX package's subcommands and flags with the same defaults and the same
 outputs: ``evaluate_results/<command>/<dataset>.pkl`` (the pickled
 Evaluator, relative to the working directory), the printed metrics, the
 prediction and pseudo-GT pkls of ``--export_pred`` / ``--export_pseudo_gt``
 and checkpoints under ``--checkpoints_dir`` (the port's own ``.pth``
-files). Data are read through ``ihmr_tpu_torch.data``; ``--model_root``
+files). ``serve`` answers HTTP requests (``ihmr_tpu_torch.serve``) with the
+``baseline`` checkpoint of ``--test_epoch``. ``--bf16`` selects the bf16
+encoder (``models.resnet``: bf16 convolutions, BatchNorm outputs and fc1
+over fp32 parameters) in ``train-baseline``, ``test-baseline`` and
+``serve``; the other commands accept it and ignore it, as the JAX CLI
+does. Data are read through ``ihmr_tpu_torch.data``; ``--model_root``
 names a directory with ``MANO_RIGHT.pkl``, ``MANO_LEFT.pkl`` and,
 optionally, ``mean_mano_params.pkl`` (without it, or with
 ``--synthetic_mano``, the synthetic hand).
@@ -20,12 +26,15 @@ One flag is new: ``--device`` (default ``cuda``; ``cpu`` runs on the CPU,
 the kernels through their plain versions). Train-mode BatchNorm statistics
 follow ``IHMR_BN_IMPL`` as in the JAX package (``stock``, ``fused``, or
 ``pallas``: the kernel K3). The JAX package's XLA compile cache and
-backend probe have no counterpart. ``visualize``, ``serve`` and the flags
-whose paths are not ported yet raise, naming their ROADMAP.md item.
+backend probe have no counterpart. ``visualize`` and the flags whose paths
+are not ported yet raise, naming their ROADMAP.md item.
 
 ``main(argv)`` returns the command's summary (a dict: ``seconds``,
 ``data_seconds``, ``forward_seconds`` and the command's Evaluator,
-``metrics`` or training statistics).
+``metrics`` or training statistics); ``serve`` blocks until interrupted.
+``start_server(parse_args(argv))`` builds, warms up and starts the server
+that ``serve`` runs, and returns it; ``build_predict`` builds its predict
+function alone.
 """
 
 from __future__ import annotations
@@ -42,9 +51,7 @@ import numpy as np
 # what each refused subcommand or flag waits for: its ROADMAP.md item
 _ROADMAP = {
     "collision": "ROADMAP.md Queue 1, item 1 (the other in-loop collision paths)",
-    "bf16": "ROADMAP.md Queue 1, item 2 (bf16 training)",
-    "utils": "ROADMAP.md Queue 1, item 3 (utils/: rendering, the visualizer and the live monitor)",
-    "serve": "ROADMAP.md Queue 1, item 4 (serve and the tracker)",
+    "utils": "ROADMAP.md Queue 1, item 2 (utils/: rendering, the visualizer and the live monitor)",
     "multicard": "ROADMAP.md Queue 1, the slice with more than one card (parallel/, --rank/--world_size)",
 }
 
@@ -55,8 +62,6 @@ def _refuse(what: str, key: str):
 
 def _check_flags(args) -> None:
     """Raise on every flag whose path the port does not have yet."""
-    if getattr(args, "bf16", False):
-        _refuse("--bf16", "bf16")
     if getattr(args, "rank", 0) > 0 or getattr(args, "world_size", 1) > 1:
         _refuse("--rank > 0 / --world_size > 1", "multicard")
     if getattr(args, "display_freq", 0) > 0 or getattr(args, "live_port", -1) >= 0:
@@ -83,7 +88,9 @@ def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--checkpoints_dir", default="./checkpoints")
     p.add_argument("--strategy", default="opt_default")
     p.add_argument("--main_encoder", default="resnet50")
-    p.add_argument("--bf16", action="store_true", help="not ported yet (raises)")
+    p.add_argument("--bf16", action="store_true",
+                   help="train-baseline, test-baseline, serve: backbone convs, BatchNorm outputs and fc1 compute "
+                        "in bfloat16 over fp32 parameters (fp32 BatchNorm statistics, fp32 losses and heads)")
     p.add_argument("--synthetic_mano", action="store_true", help="use synthetic MANO assets (no licensed files)")
     p.add_argument("--rank", type=int, default=0)
     p.add_argument("--world_size", type=int, default=1)
@@ -127,12 +134,14 @@ def _bn_impl() -> str:
 
 
 def _encoder(args, dev):
-    """The encoder with seeded random weights (seed 0), on ``dev``."""
+    """The encoder with seeded random weights (seed 0), on ``dev``, computing
+    in bf16 with ``--bf16``."""
     import torch
 
     from ihmr_tpu_torch.models.encoder import InterHandEncoder, init_encoder_weights
 
-    encoder = InterHandEncoder(arch=args.main_encoder, bn_impl=_bn_impl())
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    encoder = InterHandEncoder(arch=args.main_encoder, bn_impl=_bn_impl(), dtype=dtype)
     init_encoder_weights(encoder, torch.Generator().manual_seed(0))
     return encoder.to(dev)
 
@@ -359,8 +368,57 @@ def cmd_visualize(args):
     _refuse("the visualize command (mesh rendering)", "utils")
 
 
+def build_predict(args):
+    """The serve command's predict function (``serve.build_encoder_predict_fn``)
+    on ``--device``: the encoder (``--bf16``: the bf16 one) with the
+    ``baseline`` checkpoint of ``--test_epoch``, loaded as test-baseline
+    loads it, or seeded random weights, with a warning, when there is none."""
+    from ihmr_tpu_torch.serve import build_encoder_predict_fn
+    from ihmr_tpu_torch.train import checkpoint as ckpt
+
+    dev = _device(args)
+    mano_right, _ = _load_mano(args, dev)
+    encoder = _encoder(args, dev)
+    weights = ckpt.load_network(args.checkpoints_dir, "baseline", args.test_epoch)
+    if weights is not None:
+        encoder.load_state_dict(weights, strict=True)
+        print(f"serving checkpoint '{args.test_epoch}' from {args.checkpoints_dir}")
+    else:
+        print("WARNING: no checkpoint found — serving a randomly-initialized encoder")
+    return build_encoder_predict_fn(encoder, _mean_params(args, dev), mano_right, args.inputSize, dev)
+
+
+def start_server(args):
+    """The serve command up to its blocking loop: ``build_predict``, one
+    warm-up call on a zero batch, and the micro-batching HTTP server started
+    on ``--port`` (0: a free port). Returns the running
+    ``serve.InferenceServer``; its ``stop()`` ends it."""
+    import numpy as np
+
+    from ihmr_tpu_torch.serve import InferenceServer, MicroBatcher
+
+    predict = build_predict(args)
+    # the first call builds the cuDNN plans and the caching allocator's pool;
+    # it must not count against a request's deadline
+    t0 = time.perf_counter()
+    predict(np.zeros((args.serve_batch, args.inputSize, args.inputSize, 3), np.float32))
+    print(f"warmup: {time.perf_counter() - t0:.1f}s", flush=True)
+    shape = (args.inputSize, args.inputSize, 3)
+    server = InferenceServer(MicroBatcher(predict, args.serve_batch, max_wait_ms=args.max_wait_ms, input_shape=shape),
+                             shape)
+    server.start(args.port)
+    return server
+
+
 def cmd_serve(args):
-    _refuse("the serve command", "serve")
+    """Batched inference serving: ``start_server``, then wait for Ctrl-C."""
+    server = start_server(args)
+    print("POST /predict, GET /healthz, GET /stats — Ctrl-C to stop", flush=True)
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        server.stop()
 
 
 COMMANDS = ("train-baseline", "test-baseline", "optimize", "train-mlp", "test-mlp", "visualize", "serve")
@@ -445,19 +503,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--limit", type=int, default=None)
     p.set_defaults(func=cmd_visualize)
 
-    p = sub.add_parser("serve", help="not ported yet (raises)")
+    p = sub.add_parser("serve", help="batched inference HTTP server")
     _add_common(p)
     p.add_argument("--test_epoch", default="latest")
     p.add_argument("--port", type=int, default=8080)
-    p.add_argument("--serve_batch", type=int, default=16)
-    p.add_argument("--max_wait_ms", type=float, default=10.0)
+    p.add_argument("--serve_batch", type=int, default=16, help="micro-batch size (every batch is padded to it)")
+    p.add_argument("--max_wait_ms", type=float, default=10.0, help="max time to wait filling a micro-batch")
     p.set_defaults(func=cmd_serve)
     return parser
 
 
-def main(argv: Optional[List[str]] = None) -> Dict:
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    """Parse ``argv``; raise on a flag whose path is not ported yet."""
     args = build_parser().parse_args(argv)
     _check_flags(args)
+    return args
+
+
+def main(argv: Optional[List[str]] = None) -> Dict:
+    args = parse_args(argv)
     return args.func(args)
 
 

@@ -101,13 +101,18 @@ def _encoder_entries(variables: Mapping):
 
 
 def encoder_from_jax(
-    variables: Mapping, arch: str = "resnet50", device: DeviceLike = None, bn_impl: str = "stock"
+    variables: Mapping,
+    arch: str = "resnet50",
+    device: DeviceLike = None,
+    bn_impl: str = "stock",
+    dtype: torch.dtype = torch.float32,
 ) -> InterHandEncoder:
     """A torch InterHandEncoder (eval mode, on ``device``, train-mode
-    BatchNorm by ``bn_impl``) holding the flax encoder's weights. Raises on
-    any flax variable without a counterpart and on any torch parameter or
-    buffer left unset."""
-    encoder = InterHandEncoder(arch, bn_impl=bn_impl)
+    BatchNorm by ``bn_impl``, computing in ``dtype``) holding the flax
+    encoder's weights, which are fp32 in either dtype. Raises on any flax
+    variable without a counterpart and on any torch parameter or buffer left
+    unset."""
+    encoder = InterHandEncoder(arch, bn_impl=bn_impl, dtype=dtype)
     _load_state(encoder, _encoder_entries(variables))
     return encoder.to(resolve_device(device)).eval()
 

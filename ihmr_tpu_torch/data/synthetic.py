@@ -44,7 +44,9 @@ from ihmr_tpu_torch.refine.opt_engine import OptBatch, ParamDict, params_from_in
 
 
 @torch.no_grad()
-def _decode(model: ManoModel, pose, shape, trans, cam):
+def decode_gt(model: ManoModel, pose, shape, trans, cam):
+    """(B, 96) pose, (B, 20) shape, (B, 3) trans, (B, 3) cam -> (right verts,
+    left verts, joints 3D (B, 42, 3), joints 2D (B, 42, 2)), no autograd."""
     rv, lv, j3 = two_hand_decode_mirrored(
         model, pose[:, 0:3], pose[:, 48:51], pose[:, 3:48], pose[:, 51:96], shape[:, :10], shape[:, 10:], trans
     )
@@ -65,7 +67,7 @@ def generate(model: ManoModel, batch: int, seed: int, noise: float) -> Dict[str,
     def t(x):
         return torch.as_tensor(x, device=dev)
 
-    _, _, gt_j3, gt_j2 = _decode(model, t(gt_pose), t(gt_shape), t(gt_trans), t(cam))
+    _, _, gt_j3, gt_j2 = decode_gt(model, t(gt_pose), t(gt_shape), t(gt_trans), t(cam))
 
     init_pose = gt_pose + rng.randn(batch, 96).astype(f32) * f32(noise)
     init_shape = gt_shape + rng.randn(batch, 20).astype(f32) * f32(noise)
@@ -94,8 +96,13 @@ def make_opt_inputs(
 ) -> Tuple[ParamDict, OptBatch]:
     """(initial params, OptBatch) of the ``standard`` benchmark family (broad
     shallow contact, both hands valid), on ``model``'s device."""
-    d = generate(model, batch, seed, noise)
-    dev = model.device
+    return opt_inputs(generate(model, batch, seed, noise))
+
+
+def opt_inputs(d: Dict[str, torch.Tensor]) -> Tuple[ParamDict, OptBatch]:
+    """``generate``'s draws (or any dict of its keys) -> (initial params,
+    OptBatch), both hands valid."""
+    batch, dev = d["gt_pose"].shape[0], d["gt_pose"].device
     ones = torch.ones((batch, 42, 1), device=dev)
     ones1 = torch.ones((batch, 1), device=dev)
     params = params_from_init(d["init_cam"], d["init_pose"], d["init_shape"], d["init_trans"])

@@ -24,7 +24,10 @@ TOTAL_PARAMS_DIM = 122
 class InterHandEncoder(nn.Module):
     """Images (B, H, W, 3) NHWC -> (params (B, 122), hand_type (B, 2)).
     ``bn_impl``: how the backbone's train-mode BatchNorm computes its batch
-    moments ("stock", "fused" or "pallas", the kernel K3; ``models.resnet``)."""
+    moments ("stock", "fused" or "pallas", the kernel K3; ``models.resnet``).
+    ``dtype``: the backbone's compute dtype (``torch.bfloat16`` is the JAX
+    package's ``--bf16`` encoder); its 1024-d feature and the head are fp32
+    either way, and every parameter is fp32."""
 
     def __init__(
         self,
@@ -32,9 +35,10 @@ class InterHandEncoder(nn.Module):
         total_params_dim: int = TOTAL_PARAMS_DIM,
         num_iterations: int = 3,
         bn_impl: str = "stock",
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
-        self.main_encoder = get_backbone(arch, bn_impl=bn_impl)
+        self.main_encoder = get_backbone(arch, bn_impl=bn_impl, dtype=dtype)
         self.feat_encoder = nn.Sequential(nn.ReLU(), nn.Linear(1024, 1024), nn.ReLU())
         self.regressor_ih = nn.Sequential(nn.Linear(1024 + total_params_dim, total_params_dim))
         self.hand_classifier = nn.Sequential(nn.Linear(1024, 2), nn.Sigmoid())

@@ -13,6 +13,20 @@ convolutions (incl. the strided downsample) pad 0 — the same geometry as
 the flax model. The public input is NHWC (B, H, W, 3), as in JAX; the
 module makes a contiguous NCHW copy inside, so every activation is
 contiguous NCHW (the layout the BatchNorm-statistics kernel reads).
+
+Mixed precision (``dtype=torch.bfloat16``, the JAX package's
+``ResNet(dtype=bfloat16)``) follows flax's casts, not torch's autocast:
+the input is cast to bf16 once, each convolution computes in bf16 with its
+fp32 weight cast to bf16 (fp32 accumulation, a bf16 output); BatchNorm
+takes its statistics in fp32 (K3 reads the bf16 activation in place),
+normalises in fp32 (``(x - mean) * (rsqrt(var + eps) * scale) + bias``,
+flax's ``_normalize`` promotes the bf16 input to the fp32 statistics) and
+rounds the result to bf16, in train and in eval mode; residual adds, ReLU
+and max-pool stay bf16; the global mean accumulates in fp32 and rounds to
+bf16; ``fc1`` rounds its bf16 product to bf16 before adding the bf16 bias,
+as ``nn.Dense(dtype=bf16)`` does; the feature comes back as fp32,
+``relu(x.float())``. Parameters, running statistics and checkpoints stay
+fp32.
 """
 
 from __future__ import annotations
@@ -21,6 +35,7 @@ from typing import Sequence, Type, Union
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from ihmr_tpu_torch.ops.bn_stats import batch_moments, bn_stats_reference
 
@@ -54,7 +69,9 @@ class BatchNorm(nn.BatchNorm2d):
     updated with the biased variance, running = 0.9 running + 0.1 batch.
     torch's own train mode would update the running variance with the
     unbiased n / (n - 1) variance. ``num_batches_tracked`` is not advanced
-    (flax keeps no such count). Eval mode is ``nn.BatchNorm2d``'s path."""
+    (flax keeps no such count). Eval mode is ``nn.BatchNorm2d``'s path on
+    fp32 inputs; on bf16 inputs it is the formula above with the running
+    statistics. The output has the input's dtype (see the module docstring)."""
 
     def __init__(self, num_features: int, bn_impl: str = "stock"):
         if bn_impl not in BN_IMPLS:
@@ -63,19 +80,42 @@ class BatchNorm(nn.BatchNorm2d):
         self.bn_impl = bn_impl
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
+        if self.training:
+            mean, var = _moments(x, self.bn_impl)
+            with torch.no_grad():
+                self.running_mean.copy_(BN_MOMENTUM * self.running_mean + (1.0 - BN_MOMENTUM) * mean)
+                self.running_var.copy_(BN_MOMENTUM * self.running_var + (1.0 - BN_MOMENTUM) * var)
+        elif x.dtype == torch.float32:
             return super().forward(x)
-        mean, var = _moments(x, self.bn_impl)
-        with torch.no_grad():
-            self.running_mean.copy_(BN_MOMENTUM * self.running_mean + (1.0 - BN_MOMENTUM) * mean)
-            self.running_var.copy_(BN_MOMENTUM * self.running_var + (1.0 - BN_MOMENTUM) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
         view = (1, -1, 1, 1)
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean.reshape(view)) * mul.reshape(view) + self.bias.reshape(view)
+        # a bf16 x promotes to the fp32 statistics; the result rounds back once
+        return ((x - mean.reshape(view)) * mul.reshape(view) + self.bias.reshape(view)).to(x.dtype)
 
 
-def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that computes in its input's dtype: a bf16 input meets
+    the fp32 weight cast to bf16 (flax's ``nn.Conv(dtype=bf16)``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight.to(x.dtype), None)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` that computes in its input's dtype. A bf16 input meets
+    the weight and the bias cast to bf16, and the product is rounded to
+    bf16 before the bias is added, as in flax's ``nn.Dense(dtype=bf16)``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == self.weight.dtype:
+            return super().forward(x)
+        return F.linear(x, self.weight.to(x.dtype)) + self.bias.to(x.dtype)
+
+
+def _conv(cin: int, cout: int, k: int, stride: int = 1) -> Conv2d:
+    return Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
 
 
 class BasicBlock(nn.Module):
@@ -126,7 +166,9 @@ class Bottleneck(nn.Module):
 
 class ResNet(nn.Module):
     """ResNet trunk ending in the IHMR 1024-d feature head. ``bn_impl``
-    chooses how train-mode BatchNorm computes its batch moments (``BatchNorm``)."""
+    chooses how train-mode BatchNorm computes its batch moments
+    (``BatchNorm``); ``dtype`` (fp32 or bf16) the dtype its convolutions,
+    BatchNorm outputs and ``fc1`` compute in (module docstring)."""
 
     def __init__(
         self,
@@ -134,9 +176,13 @@ class ResNet(nn.Module):
         block: Type[Union[BasicBlock, Bottleneck]],
         feature_dim: int = 1024,
         bn_impl: str = "stock",
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype must be torch.float32 or torch.bfloat16, got {dtype}")
+        self.dtype = dtype
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = BatchNorm(64, bn_impl)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
@@ -149,18 +195,18 @@ class ResNet(nn.Module):
                 cin = 64 * 2**i * block.expansion
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
         self.num_stages = len(stage_sizes)
-        self.fc1 = nn.Linear(cin, feature_dim)
+        self.fc1 = Linear(cin, feature_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, H, W, 3) NHWC -> (B, feature_dim)."""
         # a contiguous NCHW copy: the permuted view is channels-last in memory,
         # and convolutions would carry that layout through the whole network
-        x = x.permute(0, 3, 1, 2).contiguous()
+        x = x.permute(0, 3, 1, 2).contiguous().to(self.dtype)
         x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
         for i in range(self.num_stages):
             x = getattr(self, f"layer{i + 1}")(x)
         x = torch.relu(x.mean(dim=(2, 3)))
-        return torch.relu(self.fc1(x))
+        return torch.relu(self.fc1(x).float())
 
 
 ARCHS = {
@@ -173,7 +219,7 @@ ARCHS = {
 
 
 def get_backbone(arch: str, **kwargs) -> ResNet:
-    """``kwargs``: ``feature_dim``, ``bn_impl`` (see ``ResNet``)."""
+    """``kwargs``: ``feature_dim``, ``bn_impl``, ``dtype`` (see ``ResNet``)."""
     if arch not in ARCHS:
         raise ValueError(f"Invalid backbone architecture: {arch}")
     stage_sizes, block = ARCHS[arch]

@@ -23,13 +23,29 @@ RandomState(0).randn * 0.5), train-mode BatchNorm by ``bn_impl`` ("pallas":
 the kernel K3 in each of the 53 BatchNorms); ``train_baseline_loop`` over
 one epoch of ``steps`` batches, then one ``eval_step`` (exact collision
 metric, the kernel K1).
+
+Serving (``scripts/serve_bench.py``'s protocol, ``serve_load`` and the
+``SERVE_*`` constants): 8-image octet-stream requests in sequence, a few
+JSON and ``.npy`` requests, then 8 client threads of 3 single-image
+requests each, against a running ``serve.InferenceServer``.
+
+Tracking (``scripts/tracker_study.py``'s streams, ``make_tracker_frames``
+and ``run_tracker``): S streams of the full synthetic hand moving by a
+smoothed random walk through ``TwoHandTracker`` (``streaming_strategy``,
+``save_mid_freq=5``), each frame's noisy detection blended into the warm
+start.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
+import json
 import tempfile
+import threading
 import time
+import urllib.request
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -38,9 +54,11 @@ import torch
 
 from ihmr_tpu_torch.data.synthetic import (
     BatchList,
+    decode_gt,
     make_baseline_batch,
     make_mlp_inputs,
     make_opt_inputs,
+    opt_inputs,
     opt_raw_batch,
 )
 from ihmr_tpu_torch.device import DeviceLike, resolve_device, set_fp32_matmul_precision
@@ -51,6 +69,7 @@ from ihmr_tpu_torch.models.encoder import InterHandEncoder, SubNetwork, build_me
 from ihmr_tpu_torch.refine.mlp_engine import MLPCaches, flat_params, seed_from_backbone
 from ihmr_tpu_torch.refine.opt_engine import OptBatch, OptConfig, ParamDict, optimize_batch
 from ihmr_tpu_torch.refine.schedule import Stage, mlp_default, opt_default
+from ihmr_tpu_torch.refine.tracker import TrackerState, TwoHandTracker, streaming_strategy
 from ihmr_tpu_torch.train.baseline import (
     BaselineBatch,
     BaselineState,
@@ -304,13 +323,15 @@ def make_train_bench_inputs(
     bn_impl: str = "pallas",
     seed: int = 0,
     device: DeviceLike = None,
+    dtype: torch.dtype = torch.float32,
 ) -> TrainBenchInputs:
-    """Seeded encoder (random weights, ``init_encoder_weights``), its fresh
-    training state and the synthetic batch on ``device`` (CUDA unless "cpu"
-    is asked for). Sets fp32 matmuls and convolutions (no TF32)."""
+    """Seeded encoder (random weights, ``init_encoder_weights``; computing in
+    ``dtype``, torch.bfloat16 being ``--bf16``), its fresh training state and
+    the synthetic batch on ``device`` (CUDA unless "cpu" is asked for). Sets
+    fp32 matmuls and convolutions (no TF32)."""
     dev = resolve_device(device)
     set_fp32_matmul_precision()
-    encoder = InterHandEncoder(arch, bn_impl=bn_impl)
+    encoder = InterHandEncoder(arch, bn_impl=bn_impl, dtype=dtype)
     init_encoder_weights(encoder, torch.Generator().manual_seed(seed))
     mano_right = synthetic_mano_model(device=dev)
     config = TrainConfig(total_epoch=1)
@@ -400,3 +421,275 @@ def short_train_gaps(a: Dict[str, object], b: Dict[str, object]) -> Dict[str, fl
         metrics=metrics, stats=stats, loss2=rel(a["loss2"], b["loss2"]),
         params=float(np.quantile(diffs, PARAMS_SHARE)), params_all=float(diffs.max()),
     )
+
+
+# The predict function against a reference of the same dtype on the same
+# images (card against CPU, port against JAX): each output within the
+# encoder's parity bound, |a - b| <= atol + rtol |b| (tests/test_torch_port_models.py).
+PREDICT_TOL = dict(rtol=1e-4, atol=1e-5)
+# bf16 outputs cannot be held to a plain bound (bf16 rounds every layer's
+# output, and a 1-ulp flip anywhere moves everything after it). The band:
+# for each output, max |bf16 under test - bf16 reference| may be at most
+# BF16_BAND times max |bf16 reference - fp32 reference| on the same images
+# and weights. It holds the card against the CPU and train-mode forwards,
+# which round at the same places but sum in other orders (measured ratios
+# 0.6-0.8); an encoder computing in fp32 reads about 1 there too, so
+# backbone_input_dtypes holds the dtype beside it. Eval-mode outputs against
+# JAX's program compiled to round where flax's casts say
+# (xla_allow_excess_precision off) are held to BF16_STRICT_BAND: measured
+# at most 0.00043 (tests/test_torch_port_bf16.py, test_torch_port_serve.py),
+# against about 1 for an fp32 encoder.
+BF16_BAND = 2.0
+BF16_STRICT_BAND = 0.05
+
+
+def allclose_ratio(a: np.ndarray, b: np.ndarray, rtol: float, atol: float) -> float:
+    """max |a - b| / (atol + rtol |b|): at most 1 where ``np.allclose`` holds."""
+    return float(np.max(np.abs(np.asarray(a, np.float64) - b) / (atol + rtol * np.abs(np.asarray(b, np.float64)))))
+
+
+def max_gaps(a: Dict[str, np.ndarray], b: Dict[str, np.ndarray]) -> Dict[str, float]:
+    """max |a[k] - b[k]| of each output."""
+    return {k: float(np.max(np.abs(np.asarray(a[k], np.float64) - b[k]))) for k in b}
+
+
+def bf16_band_ratios(test: Dict[str, np.ndarray], ref16: Dict[str, np.ndarray], ref32: Dict[str, np.ndarray]):
+    """Each output's max |test - ref16| over max |ref16 - ref32|: within the
+    band where at most BF16_BAND."""
+    gap, width = max_gaps(test, ref16), max_gaps(ref16, ref32)
+    return {k: gap[k] / max(width[k], 1e-30) for k in ref32}
+
+
+@contextlib.contextmanager
+def backbone_input_dtypes():
+    """While open, the dtype of the input of every backbone convolution,
+    BatchNorm and ``fc1`` call, in any thread (the broker's included), is
+    appended to the list it yields: all bf16 where the bf16 encoder runs."""
+    from ihmr_tpu_torch.models.resnet import BatchNorm, Conv2d, Linear
+
+    seen = []
+
+    def hook(module, args):
+        if isinstance(module, (BatchNorm, Conv2d, Linear)):
+            seen.append(args[0].dtype)
+
+    handle = torch.nn.modules.module.register_module_forward_pre_hook(hook)
+    try:
+        yield seen
+    finally:
+        handle.remove()
+
+
+# A small predict function that holds the card against the CPU (chip_smoke.py
+# and tests/test_torch_port_cuda.py): ResNet-18 at 64x64, seeded weights,
+# B=4 seeded images, fp32 and bf16.
+def run_short_predict(device: DeviceLike = None) -> Dict[str, Dict]:
+    """-> {"fp32": outputs, "bf16": outputs} of ``build_encoder_predict_fn``
+    on ``device``, and "dtypes": {"fp32": ..., "bf16": ...}, the names of
+    the dtypes the backbone's layers took in each (``backbone_input_dtypes``)."""
+    from ihmr_tpu_torch.serve import build_encoder_predict_fn
+
+    dev = resolve_device(device)
+    set_fp32_matmul_precision()
+    images = np.random.RandomState(0).rand(4, 64, 64, 3).astype(np.float32)
+    mano = synthetic_mano_model(device=dev)
+    mean = build_mean_params(np.zeros(48, np.float32), np.zeros(10, np.float32), dev)
+    out = {"dtypes": {}}
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        encoder = InterHandEncoder("resnet18", dtype=dtype)
+        init_encoder_weights(encoder, torch.Generator().manual_seed(0))
+        with backbone_input_dtypes() as seen:
+            out[name] = build_encoder_predict_fn(encoder, mean, mano, 64, dev)(images)
+        out["dtypes"][name] = sorted({str(d).replace("torch.", "") for d in seen})
+    return out
+
+
+def post(port: int, body: bytes, ctype: str, timeout: float = 120.0) -> Tuple[float, str, bytes]:
+    """POST ``body`` to /predict on localhost -> (seconds, response content
+    type, response body); raises (``urllib.error.HTTPError``) unless 200."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/predict", data=body, headers={"Content-Type": ctype})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        payload = resp.read()
+        ctype_out = resp.headers.get("Content-Type")
+    return time.perf_counter() - t0, ctype_out, payload
+
+
+def get_json(port: int, path: str) -> Dict:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as resp:
+        return json.loads(resp.read())
+
+
+def _npz(payload: bytes) -> Dict[str, np.ndarray]:
+    with np.load(io.BytesIO(payload)) as z:
+        return {k: z[k] for k in z.files}
+
+
+@dataclass
+class ServeLoad:
+    """Each kind of request: (seconds, images sent, outputs stacked per key)."""
+
+    octet: List[Tuple[float, np.ndarray, Dict[str, np.ndarray]]]
+    npy: List[Tuple[float, np.ndarray, Dict[str, np.ndarray]]]
+    json: List[Tuple[float, np.ndarray, Dict[str, np.ndarray]]]
+    concurrent: List[Tuple[float, np.ndarray, Dict[str, np.ndarray]]]
+    concurrent_seconds: float  # wall time of the concurrent part
+    stats_before: Dict  # /stats just before the concurrent part
+    stats_after: Dict  # and just after it
+
+
+# scripts/serve_bench.py's load (serve_load): SERVE_SEQUENTIAL octet-stream
+# requests of SERVE_IMAGES images of SERVE_SIZE x SERVE_SIZE, SERVE_NPY .npy
+# requests of them, SERVE_JSON JSON requests of the first SERVE_JSON_IMAGES
+# (JSON's float lists are slow: ~0.1 s an image), then SERVE_THREADS client
+# threads of SERVE_PER_THREAD single-image requests each
+SERVE_SIZE = 224
+SERVE_IMAGES = 8
+SERVE_SEQUENTIAL, SERVE_NPY, SERVE_JSON, SERVE_JSON_IMAGES = 30, 5, 3, 3
+SERVE_THREADS, SERVE_PER_THREAD = 8, 3
+
+
+def serve_load(port: int, images: np.ndarray) -> ServeLoad:
+    """``scripts/serve_bench.py``'s protocol (the SERVE_* counts) against the
+    server on ``port``, ``images`` (N, H, W, 3) being a request's images;
+    thread t's j-th single takes image (t * SERVE_PER_THREAD + j) mod N.
+    Every request must answer 200."""
+    octet = []
+    for _ in range(SERVE_SEQUENTIAL):
+        dt, ctype, body = post(port, images.tobytes(), "application/octet-stream")
+        if ctype != "application/x-npz":
+            raise AssertionError(f"octet-stream answered {ctype}")
+        octet.append((dt, images, _npz(body)))
+    npy = []
+    buf = io.BytesIO()
+    np.save(buf, images, allow_pickle=False)
+    for _ in range(SERVE_NPY):
+        dt, _, body = post(port, buf.getvalue(), "application/x-npy")
+        npy.append((dt, images, _npz(body)))
+    js = []
+    sub = images[:SERVE_JSON_IMAGES]
+    text = json.dumps({"images": sub.tolist()}).encode()
+    for _ in range(SERVE_JSON):
+        dt, _, body = post(port, text, "application/json")
+        results = json.loads(body)["results"]
+        js.append((dt, sub, {k: np.asarray([r[k] for r in results], np.float32) for k in results[0]}))
+
+    stats_before = get_json(port, "/stats")
+    concurrent, errors, lock = [], [], threading.Lock()
+
+    def client(t):
+        try:
+            for j in range(SERVE_PER_THREAD):
+                img = images[(t * SERVE_PER_THREAD + j) % len(images)][None]
+                dt, _, body = post(port, img.tobytes(), "application/octet-stream")
+                with lock:
+                    concurrent.append((dt, img, _npz(body)))
+        except Exception as e:  # surfaced below
+            errors.append(e)
+
+    workers = [threading.Thread(target=client, args=(t,)) for t in range(SERVE_THREADS)]
+    t0 = time.perf_counter()
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout=300)
+    seconds = time.perf_counter() - t0
+    if errors or any(w.is_alive() for w in workers) or len(concurrent) != SERVE_THREADS * SERVE_PER_THREAD:
+        raise AssertionError(f"concurrent requests failed: {errors[:3]}")
+    return ServeLoad(octet, npy, js, concurrent, seconds, stats_before, get_json(port, "/stats"))
+
+
+def percentile_ms(seconds: List[float], q: float) -> float:
+    """``scripts/serve_bench.py``'s percentile, in ms."""
+    lat = sorted(seconds)
+    return 1e3 * lat[min(len(lat) - 1, max(0, int(q * len(lat)) - 1))]
+
+
+# scripts/tracker_study.py's motion: the middle of its three per-frame
+# pose-delta scales (0.005, 0.02, 0.05) and its detection noise
+TRACK_SPEED = 0.02
+TRACK_NOISE = 0.15
+
+
+def make_tracker_frames(mano: ManoModel, streams: int = 64, frames: int = 9, seed: int = 0):
+    """Temporally coherent frames of ``streams`` video streams, drawn as
+    ``scripts/tracker_study.py`` draws them (its ``batch_and_init``) from
+    RandomState(1000 seed + 17): shapes and camera fixed per stream; pose
+    and translation follow a smoothed (OU) random walk at TRACK_SPEED; each
+    frame's detection is its ground truth plus TRACK_NOISE (translation
+    0.2 of it), drawn afresh every frame, and its init joints the ground
+    truth's plus 0.02 TRACK_NOISE. -> [(detection params, OptBatch)], one
+    per frame, on ``mano``'s device."""
+    f32, S = np.float32, streams
+    rng = np.random.RandomState(1000 * seed + 17)
+    pose = (rng.randn(S, 96) * 0.2).astype(f32)
+    shape = (rng.randn(S, 20) * 0.5).astype(f32)
+    cam = np.tile(np.array([[5.0, 0.0, 0.0]], f32), (S, 1))
+    trans = (rng.randn(S, 3) * 0.02).astype(f32)
+    vel, velt = np.zeros((S, 96), f32), np.zeros((S, 3), f32)
+    t = lambda x: torch.as_tensor(x, device=mano.device)
+    out = []
+    for _ in range(frames):
+        vel = 0.9 * vel + rng.randn(S, 96).astype(f32)
+        velt = 0.9 * velt + rng.randn(S, 3).astype(f32)
+        pose = pose + TRACK_SPEED * vel * 0.1
+        trans = trans + TRACK_SPEED * velt * 0.01
+        _, _, j3, j2 = decode_gt(mano, t(pose), t(shape), t(trans), t(cam))
+        det_pose = pose + rng.randn(S, 96).astype(f32) * TRACK_NOISE
+        det_shape = shape + rng.randn(S, 20).astype(f32) * TRACK_NOISE
+        det_trans = trans + rng.randn(S, 3).astype(f32) * TRACK_NOISE * 0.2
+        kp = TRACK_NOISE * 0.02
+        init_j3 = j3 + t(rng.randn(*j3.shape).astype(f32) * kp)
+        init_j2 = j2 + t(rng.randn(*j2.shape).astype(f32) * kp)
+        out.append(opt_inputs(dict(
+            gt_pose=t(pose), gt_shape=t(shape), gt_trans=t(trans), gt_j3=j3, gt_j2=j2, init_cam=t(cam),
+            init_pose=t(det_pose), init_shape=t(det_shape), init_trans=t(det_trans), init_j3=init_j3, init_j2=init_j2,
+        )))
+    return out
+
+
+@dataclass
+class TrackerRun:
+    state: TrackerState
+    frame_seconds: List[float]  # host clock per frame, each ending in a host read
+    collision: List[float]  # each frame's final mean collision loss
+
+
+def run_tracker(tracker: TwoHandTracker, frames, state: Optional[TrackerState] = None) -> TrackerRun:
+    """Step ``tracker`` over ``frames`` ((detection params, OptBatch) each),
+    blending each frame's detection; without ``state`` it starts from the
+    first frame's detection."""
+    seconds, collision = [], []
+    for params, batch in frames:
+        if state is None:
+            state = tracker.init(params)
+        t0 = time.perf_counter()
+        state, res = tracker.step(state, batch, params)
+        collision.append(float(res["collision_loss"].mean()))  # a host read: the frame is done
+        seconds.append(time.perf_counter() - t0)
+    return TrackerRun(state, seconds, collision)
+
+
+def run_short_tracker(device: DeviceLike = None) -> List[Dict[str, torch.Tensor]]:
+    """The small tracker that holds the card against the CPU (chip_smoke.py
+    and tests/test_torch_port_cuda.py): B=2 streams of ``make_tracker_frames``
+    at seed 1 (one stream's hands interpenetrate in every frame, so the
+    collision terms act), two frames of ``streaming_strategy(6)`` and a
+    third at the tracker's default schedule (4 x 31 steps: 6 snapshot
+    blocks, 3 superblocks and a 1-step tail a stage) -> each frame's refined
+    params and EMA on the CPU (keys "ema_<group>" for the EMA)."""
+    dev = resolve_device(device)
+    mano = synthetic_mano_model(device=dev)
+    short = TwoHandTracker(mano, streaming_strategy(6))
+    state, out = None, []
+    for tracker, (params, batch) in zip((short, short, TwoHandTracker(mano)), make_tracker_frames(mano, 2, 3, seed=1)):
+        state = state or tracker.init(params)
+        state, _ = tracker.step(state, batch, params)
+        out.append({**{k: v.cpu() for k, v in state.params.items()},
+                    **{f"ema_{k}": v.cpu() for k, v in state.ema_params.items()}})
+    return out
+
+
+def short_tracker_gap(a: List[Dict[str, torch.Tensor]], b: List[Dict[str, torch.Tensor]]) -> float:
+    """The largest |a - b| over two ``run_short_tracker`` results."""
+    return max(float((x[k] - y[k]).abs().max()) for x, y in zip(a, b) for k in y)

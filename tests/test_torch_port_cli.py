@@ -9,11 +9,21 @@ prediction and pseudo-GT pkls) with finite metrics; every refused flag and
 subcommand raises naming its ROADMAP.md item; without ``--device cpu`` and
 without a card the CLI raises. The chain runs once per module (~60 s on one
 core, most of it the exact collision's plain version in the MLP passes).
+
+``serve`` (``cli.start_server``, the command up to its blocking loop) on
+the chain's checkpoint answers /healthz, /stats and /predict over a real
+socket, fp32 and ``--bf16``, and a full batch's params and hand types are
+those of test-baseline's encoder (the same checkpoint, the same dtype) on
+the same images, bit for bit; ``train-baseline --bf16`` and ``test-baseline
+--bf16`` run the chain's data with finite losses and metrics.
 """
 
+import io
+import json
 import math
 import os
 import os.path as osp
+import urllib.request
 
 import numpy as np
 import pytest
@@ -133,14 +143,12 @@ def test_continue_train_and_pretrained_backbone(chain, capsys):
 
 
 REFUSED = [
-    (["visualize", "--results", "x.pkl"], "item 3"),
-    (["serve"], "item 4"),
-    (["train-baseline", "--bf16"], "item 2"),
+    (["visualize", "--results", "x.pkl"], "item 2"),
     (["train-baseline", "--rank", "1", "--world_size", "2"], "more than one card"),
     (["optimize", "--world_size", "2"], "more than one card"),
-    (["train-baseline", "--display_freq", "8"], "item 3"),
-    (["train-baseline", "--live_port", "0"], "item 3"),
-    (["test-baseline", "--visualize_eval"], "item 3"),
+    (["train-baseline", "--display_freq", "8"], "item 2"),
+    (["train-baseline", "--live_port", "0"], "item 2"),
+    (["test-baseline", "--visualize_eval"], "item 2"),
     (["optimize", "--loop_collision_backend", "grid"], "item 1"),
     (["optimize", "--escalate_collision", "0.5"], "item 1"),
     (["optimize", "--loop_collision_eager_reselect"], "item 1"),
@@ -174,3 +182,60 @@ def test_bn_impl_follows_the_environment(monkeypatch):
     encoder = cli._encoder(args, torch.device("cpu"))
     assert {m.bn_impl for m in encoder.modules() if hasattr(m, "bn_impl")} == {"pallas"}
     assert all(bool(torch.isfinite(p).all()) for p in encoder.parameters())
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_serve_answers_with_the_chain_checkpoint(chain, capsys, bf16):
+    from ihmr_tpu_torch.train import checkpoint as ckpt
+
+    work, common, _ = chain
+    argv = ["serve", "--port", "0", "--serve_batch", "4"] + (["--bf16"] if bf16 else []) + common
+    args = cli.parse_args(argv)
+    server = cli.start_server(args)
+    try:
+        assert "serving checkpoint 'latest'" in capsys.readouterr().out
+        base = f"http://127.0.0.1:{server.port}"
+        with urllib.request.urlopen(f"{base}/healthz", timeout=10) as r:
+            assert r.status == 200 and json.loads(r.read()) == {"status": "ok"}
+        images = np.random.RandomState(5).rand(4, 64, 64, 3).astype(np.float32)
+        req = urllib.request.Request(f"{base}/predict", data=images.tobytes(),
+                                     headers={"Content-Type": "application/octet-stream"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            out = dict(np.load(io.BytesIO(r.read())))
+        with urllib.request.urlopen(f"{base}/stats", timeout=10) as r:
+            stats = json.loads(r.read())
+    finally:
+        server.stop()
+    assert stats["requests"] == 4 and stats["batches"] == 1 and stats["batch_efficiency"] == 1.0
+    assert out["joints_3d"].shape == (4, 42, 3) and np.isfinite(out["joints_2d"]).all()
+    # test-baseline's encoder: the same construction and checkpoint
+    encoder = cli._encoder(args, torch.device("cpu"))
+    encoder.load_state_dict(ckpt.load_network(args.checkpoints_dir, "baseline", "latest"), strict=True)
+    with torch.no_grad():
+        params, hand_type = encoder.eval()((torch.from_numpy(images) - 0.5) / 0.5,
+                                           cli._mean_params(args, torch.device("cpu")))
+    np.testing.assert_array_equal(out["params"], params.numpy())
+    np.testing.assert_array_equal(out["hand_type"], hand_type.numpy())
+
+
+def test_bf16_train_and_test_baseline(chain):
+    work, common, _ = chain
+    other = common[: common.index("--checkpoints_dir") + 1] + [osp.join(work, "ckpt_bf16"), "--device", "cpu"]
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        train = cli.main(["train-baseline", "--bf16", "--total_epoch", "1", "--save_epoch_freq", "1"] + other)
+        test = cli.main(["test-baseline", "--bf16"] + other)
+    finally:
+        os.chdir(cwd)
+    assert train["state"].encoder.main_encoder.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in train["state"].encoder.parameters())  # fp32 master weights
+    (epoch,) = train["epoch_stats"]
+    assert epoch["steps"] == 2 and all(math.isfinite(v) for v in epoch["total_loss"])
+    assert all(math.isfinite(v) for v in test["metrics"].values()), test["metrics"]
+
+
+@pytest.mark.parametrize("command", ["optimize", "train-mlp", "test-mlp"])
+def test_bf16_is_accepted_and_ignored_by_the_other_commands(command):
+    args = cli.parse_args([command, "--bf16", "--device", "cpu"])
+    assert args.bf16 and args.func.__name__ == "cmd_" + command.replace("-", "_")

@@ -26,6 +26,17 @@ by at most ~0.1 x that against joint errors of ~1e-2 (mpjpe_3d,
 inter_mpjpe_3d), the depths by less than the collision losses' 1e-3
 (collision_ave, collision_max), and one depth crossing one of
 collision_auc's thresholds moves it by 1/(2 x 1556 x 49) ~ 7e-6.
+
+Serving and tracking: the predict function (ResNet-18 64x64, B=4) on the
+card against the CPU, fp32 within ``pipeline.PREDICT_TOL`` and bf16 within
+the band (``pipeline.BF16_BAND``: max |card bf16 - CPU bf16| at most 2x max
+|CPU bf16 - CPU fp32|), every backbone layer's input bf16 in the bf16
+encoder and the bf16 outputs apart from the fp32 ones, with no kernel
+launched; a tracker step launches K1 exactly once (K2, K3 never), and 2
+frames of ``streaming_strategy(6)`` then one at the tracker's default
+schedule, at B=2, on the card and on the CPU agree within 2e-4 (the
+tracker parity test's bound); a bf16 train step of ResNet-50 launches K3 53 times, each
+on a bf16 activation.
 """
 
 import dataclasses
@@ -43,17 +54,25 @@ from ihmr_tpu_torch.ops import exact_collision as K
 from ihmr_tpu_torch.ops import nearest_centroid as NC
 from ihmr_tpu_torch.ops.collision import _centroids
 from ihmr_tpu_torch.pipeline import (
+    BF16_BAND,
+    PREDICT_TOL,
     SHORT_EVAL_RTOL,
     SHORT_MLP_TOL,
     SHORT_TRAIN_TOL,
+    allclose_ratio,
+    bf16_band_ratios,
+    make_train_bench_inputs,
     run_short_mlp,
     run_short_opt_eval,
+    run_short_predict,
+    run_short_tracker,
     run_short_train,
     short_eval_gaps,
     short_mlp_gaps,
+    short_tracker_gap,
     short_train_gaps,
 )
-from ihmr_tpu_torch.refine import OptConfig, forward, opt_default, optimize_batch
+from ihmr_tpu_torch.refine import OptConfig, TwoHandTracker, forward, opt_default, optimize_batch, streaming_strategy
 from ihmr_tpu_torch.refine.mlp_engine import seed_from_backbone
 
 pytestmark = pytest.mark.cuda
@@ -258,3 +277,56 @@ def test_short_opt_eval_matches_cpu(cuda):
     gaps = short_eval_gaps(run_short_opt_eval(cuda), run_short_opt_eval("cpu"))
     assert set(gaps) == {"mpjpe_3d", "inter_mpjpe_3d", "collision_ave", "collision_max", "collision_auc"}
     assert all(v <= SHORT_EVAL_RTOL for v in gaps.values()), gaps
+
+
+def _zero_counts():
+    for mod in (K, NC, K3):
+        mod.reset_launch_count()
+
+
+def test_short_predict_matches_cpu(cuda):
+    _zero_counts()
+    gpu = run_short_predict(cuda)
+    assert (K.launch_count, NC.launch_count, K3.launch_count) == (0, 0, 0)  # eval-mode BN, no collision
+    cpu = run_short_predict("cpu")
+    for k, ref in cpu["fp32"].items():
+        assert allclose_ratio(gpu["fp32"][k], ref, **PREDICT_TOL) <= 1.0, k
+    ratios = bf16_band_ratios(gpu["bf16"], cpu["bf16"], cpu["fp32"])
+    assert all(r <= BF16_BAND for r in ratios.values()), ratios
+    # the band cannot tell an encoder that computes in fp32: the dtype can
+    assert gpu["dtypes"] == cpu["dtypes"] == {"fp32": ["float32"], "bf16": ["bfloat16"]}
+    assert all(np.abs(gpu["bf16"][k] - v).max() > 0 for k, v in gpu["fp32"].items())
+
+
+def test_tracker_step_launches_the_exact_kernel_once(cuda):
+    mano = synthetic_mano_model(device=cuda)
+    params, batch = make_opt_inputs(mano, batch=2, seed=1000)
+    tracker = TwoHandTracker(mano, streaming_strategy(6))
+    state = tracker.init(params)
+    _zero_counts()
+    state, results = tracker.step(state, batch, params)
+    torch.cuda.synchronize()
+    assert (K.launch_count, NC.launch_count, K3.launch_count) == (1, 0, 0)
+    assert state.frame_idx == 1 and bool(torch.isfinite(results["collision_loss"]).all())
+
+
+def test_short_tracker_matches_cpu(cuda):
+    assert short_tracker_gap(run_short_tracker(cuda), run_short_tracker("cpu")) <= 2e-4
+
+
+def test_bf16_train_step_launches_k3_on_bf16(cuda):
+    from ihmr_tpu_torch.models.resnet import BatchNorm
+    from ihmr_tpu_torch.train.baseline import train_step
+
+    inputs = make_train_bench_inputs(batch=2, image_size=64, arch="resnet50", bn_impl="pallas", device=cuda,
+                                     dtype=torch.bfloat16)
+    dtypes = []
+    bns = [m for m in inputs.state.encoder.modules() if isinstance(m, BatchNorm)]
+    hooks = [m.register_forward_pre_hook(lambda _m, args: dtypes.append(args[0].dtype)) for m in bns]
+    _zero_counts()
+    _, metrics = train_step(inputs.state, inputs.batch, inputs.mano_right, inputs.mano_left, inputs.config)
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    assert K3.launch_count == 53 and dtypes == [torch.bfloat16] * 53
+    assert all(bool(torch.isfinite(v).all()) for v in metrics.values())

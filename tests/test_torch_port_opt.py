@@ -11,6 +11,16 @@ engine, the stage-hoisted one. Tolerances: final params
 reference), final collision loss 1e-3 relative; inputs 1e-5 absolute (fp32
 decode), losses 1e-5 relative. The JAX side compiles for ~80 s on one CPU
 core, so it runs once per module.
+
+The streaming tracker (``refine/tracker.py``) against JAX's
+``TwoHandTracker`` over 3 frames at B=2 (``make_opt_inputs`` seeds 0, 1, 2;
+the last two frames blend their detection into the warm start) with
+``streaming_strategy(20)`` and ``save_mid_freq=10``: the schedule and the
+config of the run above, so JAX reuses its compile. Refined params, the
+EMA and the smoothed output within 2e-4, the final collision loss within
+1e-3 relative, ``frame_idx`` equal. The tracker's default schedule shape
+(``save_mid_freq=5`` with a tail block) is in
+``tests/test_torch_port_tracker_jax.py``, a compile of its own.
 """
 
 import dataclasses
@@ -24,9 +34,18 @@ from ihmr_tpu.data.synthetic import make_opt_inputs as jax_make_opt_inputs
 from ihmr_tpu.mano.loader import synthetic_mano_model as jax_synthetic
 from ihmr_tpu.refine import opt_engine as JE
 from ihmr_tpu.refine import schedule as JS
+from ihmr_tpu.refine import tracker as JT
 from ihmr_tpu_torch.data import make_opt_inputs
 from ihmr_tpu_torch.mano import synthetic_mano_model
-from ihmr_tpu_torch.refine import OptBatch, OptConfig, compute_losses, opt_default, optimize_batch
+from ihmr_tpu_torch.refine import (
+    OptBatch,
+    OptConfig,
+    TwoHandTracker,
+    compute_losses,
+    opt_default,
+    optimize_batch,
+    streaming_strategy,
+)
 from ihmr_tpu_torch.refine import opt_engine as TE
 from ihmr_tpu_torch.refine import schedule as TS
 from tests.torch_threads import one_torch_thread  # noqa: F401
@@ -61,6 +80,9 @@ def _short(strategy):
 def jax_result(jax_inputs):
     model, params, batch = jax_inputs
     cfg = JE.OptConfig(save_mid_freq=10, collision_backend="pallas")
+    # committed, like the refined params a tracker frame starts from: jit keys
+    # its cache on that, and the tracker test reuses this compile
+    params = jax.device_put(params, jax.devices()[0])
     out, res = JE.optimize_batch(model, params, batch, _short(JS.opt_default), cfg)
     return jax.tree_util.tree_map(np.asarray, (out, res))
 
@@ -170,6 +192,57 @@ def test_full_decode_engine_matches_jax(torch_inputs, jax_result):
     for k in jout:
         np.testing.assert_allclose(out[k].numpy(), jout[k], atol=2e-4, err_msg=k)
     np.testing.assert_allclose(res["collision_loss"].numpy(), jres["collision_loss"], rtol=1e-3, atol=1e-6)
+
+
+def run_trackers(jax_tracker, tracker, jm, seeds):
+    """Both trackers over the frames ``make_opt_inputs(jm, B, seed)`` of
+    ``seeds`` (the port on the same arrays as tensors), from the first
+    frame's params; every frame after the first blends its own params in as
+    the detection. -> per frame, (JAX state, results) and the port's, numpy."""
+    jax_out, out = [], []
+    jstate = state = None
+    for i, seed in enumerate(seeds):
+        jp, jb = jax_make_opt_inputs(jm, batch=B, seed=seed)
+        tp = {k: T(v) for k, v in jp.items()}
+        tb = OptBatch(**{f.name: T(getattr(jb, f.name)) for f in dataclasses.fields(OptBatch)})
+        if i == 0:
+            # committed like every later frame's warm start (the refined params
+            # of a jitted step), so that all frames share one compile
+            jp = jax.device_put(jp, jax.devices()[0])
+            jstate, state = jax_tracker.init(jp), tracker.init(tp)
+        jstate, jres = jax_tracker.step(jstate, jb, jp if i else None)
+        state, res = tracker.step(state, tb, tp if i else None)
+        jax_out.append(jax.tree_util.tree_map(np.asarray, (jstate.params, jstate.ema_params, int(jstate.frame_idx), jres)))
+        out.append(jax.tree_util.tree_map(lambda x: x.numpy() if isinstance(x, torch.Tensor) else x,
+                                          (state.params, state.ema_params, state.frame_idx, res)))
+    return jax_out, out
+
+
+def assert_trackers_agree(jax_out, out):
+    """Refined params, EMA and smoothed output within 2e-4, final collision
+    1e-3 relative, frame_idx equal, the same result keys, every frame."""
+    for (jparams, jema, jidx, jres), (params, ema, idx, res) in zip(jax_out, out):
+        assert idx == jidx
+        assert set(res) == set(jres)
+        for k in jparams:
+            np.testing.assert_allclose(params[k], jparams[k], atol=2e-4, err_msg=k)
+            np.testing.assert_allclose(ema[k], jema[k], atol=2e-4, err_msg=k)
+            np.testing.assert_allclose(res["smoothed_params"][k], jres["smoothed_params"][k], atol=2e-4, err_msg=k)
+        np.testing.assert_allclose(res["collision_loss"], jres["collision_loss"], rtol=1e-3, atol=1e-6)
+    assert [o[2] for o in out] == [1, 2, 3]
+
+
+def test_tracker_matches_jax(jax_inputs, torch_inputs, jax_result):
+    """Three frames with a detection blend; frame 1 is ``jax_result``'s run."""
+    jm = jax_inputs[0]
+    jtracker = JT.TwoHandTracker(jm, strategy=JT.streaming_strategy(EPOCH),
+                                 config=JE.OptConfig(save_mid_freq=10, collision_backend="pallas"))
+    tracker = TwoHandTracker(torch_inputs[0], strategy=streaming_strategy(EPOCH), config=OptConfig(save_mid_freq=10))
+    assert JT.streaming_strategy(EPOCH) == _short(JS.opt_default)  # the same static arguments: no new compile
+    jax_out, out = run_trackers(jtracker, tracker, jm, (0, 1, 2))
+    for k in jax_result[0]:
+        np.testing.assert_array_equal(jax_out[0][0][k], jax_result[0][k])
+    assert_trackers_agree(jax_out, out)
 
 
 def compare_full_schedule(batch: int, seed: int, threads, stage_hoist_decode: bool = True) -> None:

@@ -75,6 +75,8 @@ def test_scan_covers_the_package():
         "ihmr_tpu_torch/refine/adam.py",
         "ihmr_tpu_torch/refine/mlp_engine.py",
         "ihmr_tpu_torch/refine/opt_engine.py",
+        "ihmr_tpu_torch/refine/tracker.py",
+        "ihmr_tpu_torch/serve.py",
         "ihmr_tpu_torch/train/baseline.py",
         "ihmr_tpu_torch/train/checkpoint.py",
         "ihmr_tpu_torch/train/loops.py",
