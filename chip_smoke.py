@@ -23,10 +23,13 @@ Phases (each raises on failure; any failure exits non-zero before the last line)
    ties inside a tile and across tiles, an odd centroid count, grid
    duplicates): indices must be 100% equal;
    bn_stats (K3): the ResNet-50 stem input (64, 64, 112, 112), the widest
-   (64, 2048, 7, 7), a ragged (3, 5, 7, 11) and a bf16 (64, 256, 56, 56):
-   sums against a float64 sum (sum x within BN_SUM_TOL of sum |x|, sum x^2
-   within BN_SQ_TOL relative), the same bits on a second launch, and the
-   backward against its formula.
+   (64, 2048, 7, 7), a ragged (3, 5, 7, 11), a bf16 (64, 256, 56, 56), the
+   small spatial sizes in bf16 ((64, 2048, 7, 7), (64, 256, 14, 14)), B=1,
+   C not a multiple of the channel tile (64, 1025, 14, 14) and a contiguous
+   view whose base is not 16-byte aligned (the masked walk): sums against a
+   float64 sum (sum x within BN_SUM_TOL of sum |x|, sum x^2 within
+   BN_SQ_TOL relative), the same bits on a second launch, one device
+   kernel a call (torch.profiler), and the backward against its formula.
 3. The OPT path at full width: ResNet-50 encoder at 224x224 and the full
    opt_default (4 x 301 Adam steps, save_mid_freq=10) on B=128 hands with the
    full MANO mesh (778 vertices, 1538 faces), on the default engine (the
@@ -52,10 +55,12 @@ Phases (each raises on failure; any failure exits non-zero before the last line)
    fp32 without TF32, bn_impl="pallas" (bn_stats, K3, in every train-mode
    BatchNorm). A warm-up of 2 steps, then train_baseline_loop over 20 steps
    with the launch counts zeroed just before and read just after (53 K3
-   launches a step), then one eval_step (one K1 launch; its depths again
-   through the plain version). The same 20 steps with bn_impl="stock",
-   timed. K3's time per step: each BatchNorm input shape of one step,
-   kernel against plain version and torch.var_mean. test_baseline_loop on
+   launches a step), one more step under torch.profiler (exactly 53 K3
+   device kernels: one launch per BatchNorm), then one eval_step (one K1
+   launch; its depths again through the plain version). The same 20 steps
+   with bn_impl="stock", timed. K3's time per step: each BatchNorm input
+   shape of one step, kernel against plain version and torch.var_mean, and
+   the kernel's share of its bound, per shape and summed. test_baseline_loop on
    the same batch after the 20 steps (one exact_collision launch).
 6. Evaluation: optimize_loop over 2 raw batches of B=128
    (make_opt_inputs seeds 0 and 1) with every stage cut to epoch 20 (one
@@ -127,8 +132,10 @@ Phases (each raises on failure; any failure exits non-zero before the last line)
    collision (finite); K1 once per frame, K2 and K3 never.
 11. bf16 training: phase 5's replayed batch with the bf16 encoder
    (``--bf16``), bn_impl="pallas", 2 warm-up and 20 timed steps; K3 53
-   launches a step, every BatchNorm input bf16; ms/step beside phase 5's
-   fp32; K3 over one step's 53 shapes in bf16 (cold L2) with its bound.
+   launches a step, every BatchNorm input bf16, and 53 K3 device kernels in
+   one more step under torch.profiler; ms/step beside phase 5's fp32; K3
+   over one step's 53 shapes in bf16 (cold L2) with its bound, per shape
+   and summed.
 12. Small inputs held against the CPU: optimize_batch at B=2 with a short
    schedule, pipeline.run_short_opt_eval (optimize_loop at B=2, 4 x 21
    steps), pipeline.run_short_mlp (three stages, one epoch, N=4) and
@@ -156,6 +163,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -405,14 +413,29 @@ def _time_bn(x):
     return tuple(cold_ms(f) for f in fns), cuda_ms(fns[0], 10)
 
 
+def k3_device_kernels(fn):
+    """The device kernels whose name holds bn_stats that one ``fn()`` runs,
+    counted by torch.profiler (``timing.device_kernels``: the third of three
+    calls, each started 10 ms into its profiler step)."""
+    from ihmr_tpu_torch.timing import device_kernels
+
+    return sum(1 for name in device_kernels(fn) if "bn_stats" in name)
+
+
 def _compare_bn(x, label):
-    """K3 against a float64 sum and its plain version; determinism; backward."""
+    """K3 against a float64 sum and its plain version; determinism; one device
+    kernel a call; backward."""
     from ihmr_tpu_torch.ops import bn_stats as K3
 
     K3.reset_launch_count()
     s, s2 = K3._launch_kernel(x)
-    again = K3._launch_kernel(x)
     torch.cuda.synchronize()
+    again = []
+
+    def launch():  # keeps the last call's sums
+        again[:] = K3._launch_kernel(x)
+
+    per_call = k3_device_kernels(launch)
     ps, ps2 = K3.bn_stats_reference(x)
     k_err, p_err = _bn_rel_errors(s, s2, x), _bn_rel_errors(ps, ps2, x)
     abs_err = max(float((s - ps).abs().max()), float((s2 - ps2).abs().max()))
@@ -426,15 +449,23 @@ def _compare_bn(x, label):
     (a * gs + b * gs2).sum().backward()
     ref_gx = (gs.reshape(view) + 2.0 * x.float() * gs2.reshape(view)).to(x.dtype)
     gx_err = float((xg.grad.float() - ref_gx.float()).abs().max() / ref_gx.float().abs().max())
+    plan = K3.launch_plan(tuple(x.shape), x.element_size(), x.data_ptr() % 16 == 0)
     log(
-        f"  [{label}] {tuple(x.shape)} {str(x.dtype).replace('torch.', '')}: kernel vs float64: sum err "
+        f"  [{label}] {tuple(x.shape)} {str(x.dtype).replace('torch.', '')}, {plan.path} path, "
+        f"{'16-byte' if plan.vector else 'masked scalar'} loads, grid {plan.grid}, {plan.slices} slices: "
+        f"kernel vs float64: sum err "
         f"{k_err[0]:.3e} of sum|x| (tol {BN_SUM_TOL}), sum-of-squares rel err {k_err[1]:.3e} (tol {BN_SQ_TOL}); "
         f"plain version vs float64: {p_err[0]:.3e}, {p_err[1]:.3e}; max |kernel - plain| {abs_err:.3e}; "
         f"same bits on a second launch: {same_bits}; backward rel err {gx_err:.3e}; "
-        f"{K3.launch_count} kernel launches in this comparison"
+        f"{K3.launch_count} kernel launches in this comparison; device kernels in one call {per_call}"
     )
-    if not (k_err[0] <= BN_SUM_TOL and k_err[1] <= BN_SQ_TOL and same_bits and gx_err <= 1e-6):
-        raise AssertionError(f"bn_stats kernel disagrees with its plain version ({label})")
+    failed = [name for name, ok in (
+        (f"sum err {k_err[0]:.3e} > {BN_SUM_TOL}", k_err[0] <= BN_SUM_TOL),
+        (f"sum-of-squares err {k_err[1]:.3e} > {BN_SQ_TOL}", k_err[1] <= BN_SQ_TOL),
+        ("other bits on a second launch", same_bits), (f"backward rel err {gx_err:.3e} > 1e-6", gx_err <= 1e-6),
+        (f"{per_call} device kernels in one call", per_call == 1)) if not ok]
+    if failed:
+        raise AssertionError(f"bn_stats kernel disagrees with its plain version ({label}): {'; '.join(failed)}")
     (ms, plain_ms, lib_ms), ev_ms = _time_bn(x)
     bound_ms, bound_by = _bn_bound_ms(x)
     log(f"  [{label}] device time, cold L2: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.var_mean "
@@ -447,16 +478,22 @@ def phase_bn_kernel(dev):
     log("kernels vs plain versions (bn_stats):")
     gen = torch.Generator(device=dev).manual_seed(3)
     cases = [
-        ("ResNet-50 stem", (64, 64, 112, 112), torch.float32),
-        ("ResNet-50 widest", (64, 2048, 7, 7), torch.float32),
-        ("ragged", (3, 5, 7, 11), torch.float32),
-        ("bf16", (64, 256, 56, 56), torch.bfloat16),
+        ("ResNet-50 stem", (64, 64, 112, 112), torch.float32, 0),
+        ("ResNet-50 widest", (64, 2048, 7, 7), torch.float32, 0),
+        ("ragged", (3, 5, 7, 11), torch.float32, 0),
+        ("bf16", (64, 256, 56, 56), torch.bfloat16, 0),
+        ("7x7 bf16", (64, 2048, 7, 7), torch.bfloat16, 0),
+        ("14x14 bf16", (64, 256, 14, 14), torch.bfloat16, 0),
+        ("B=1", (1, 2048, 7, 7), torch.float32, 0),
+        ("C not a multiple of the channel tile", (64, 1025, 14, 14), torch.float32, 0),
+        ("base not 16-byte aligned", (64, 1024, 14, 14), torch.float32, 1),
     ]
     errs = []
-    for label, shape, dtype in cases:
-        x = (torch.randn(shape, generator=gen, device=dev) * 2.0 + 0.5).to(dtype)  # a convolution's output
-        errs.append(_compare_bn(x, label))
-        del x
+    for label, shape, dtype, offset in cases:
+        # a convolution's output; offset 1 moves the contiguous view's base off 16-byte alignment
+        flat = (torch.randn((math.prod(shape) + offset,), generator=gen, device=dev) * 2.0 + 0.5).to(dtype)
+        errs.append(_compare_bn(flat[offset:].view(shape), label))
+        del flat
     return max(errs)
 
 
@@ -701,6 +738,7 @@ def phase_train_path(dev):
     if len(bns) != 53:
         raise AssertionError(f"ResNet-50 holds {len(bns)} BatchNorms, not 53")
     check_counts("the training steps", step_counts, exact_collision=0, nearest_centroid=0, bn_stats=53 * TRAIN_STEPS)
+    check_step_kernels("fp32", inputs)
 
     zero_counts()
     metrics, outputs = eval_step(inputs.state, inputs.batch, inputs.mano_right, inputs.mano_left, inputs.config)
@@ -754,6 +792,17 @@ def phase_train_path(dev):
                 stock_ms_per_step=stock_ms, k3_step=bn_step_times(dev, step_shapes))
 
 
+def check_step_kernels(label, inputs):
+    """A train step under torch.profiler (the third of three more):
+    exactly 53 K3 device kernels, one per BatchNorm."""
+    from ihmr_tpu_torch.pipeline import run_train_pipeline
+
+    n = k3_device_kernels(lambda: run_train_pipeline(inputs, 1, evaluate=False))
+    log(f"  one {label} train step under torch.profiler: {n} bn_stats device kernels (53 BatchNorms, one launch each)")
+    if n != 53:
+        raise AssertionError(f"{label} train step: {n} bn_stats device kernels, not 53")
+
+
 def bn_step_times(dev, step_shapes, dtype=torch.float32):
     """K3, its plain version and torch.var_mean over one train step's
     BatchNorm input shapes (random data of ``dtype``), summed: the K3 entry's numbers."""
@@ -772,12 +821,12 @@ def bn_step_times(dev, step_shapes, dtype=torch.float32):
         for key, v in zip(("ms", "plain_ms", "library_ms", "bound_ms"), (k_ms, p_ms, l_ms, b_ms)):
             tot[key] += n * v
         events += n * ev_ms
-        log(f"    {shape} x{n}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, var_mean {l_ms:.4f} ms, bound {b_ms:.4f} ms "
-            f"(kernel with CUDA events around one call {ev_ms:.4f} ms)")
+        log(f"    {shape} x{n}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, var_mean {l_ms:.4f} ms, bound {b_ms:.4f} ms, "
+            f"share of bound {b_ms / k_ms:.3f} (kernel with CUDA events around one call {ev_ms:.4f} ms)")
         del x
     log(f"  per step ({len(step_shapes)} launches): kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, "
-        f"var_mean {tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms (bytes); kernel with CUDA events "
-        f"around each call {events:.4f} ms")
+        f"var_mean {tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms (bytes), share of bound "
+        f"{tot['bound_ms'] / tot['ms']:.3f}; kernel with CUDA events around each call {events:.4f} ms")
     return dict(tot, bound_by="bytes")
 
 
@@ -1289,6 +1338,7 @@ def phase_train_bf16(dev, fp32_ms):
         f"run) {fp32_ms:.3f} ms/step, bf16/fp32 {ms / fp32_ms:.4f}; total loss {run.total_loss[0]:.5f} -> "
         f"{run.total_loss[-1]:.5f}; launches {counts}; BatchNorm inputs {len(seen)}, dtypes {dtypes}")
     check_counts("bf16 training", counts, exact_collision=0, nearest_centroid=0, bn_stats=53 * TRAIN_STEPS)
+    check_step_kernels("bf16", inputs)
     if len(seen) != 53 * TRAIN_STEPS or dtypes != ["bfloat16"] or not np.isfinite(run.total_loss).all():
         raise AssertionError(f"bf16 training: {len(seen)} BatchNorm inputs of {dtypes}, losses {run.total_loss}")
     del inputs, run

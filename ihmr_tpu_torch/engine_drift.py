@@ -18,8 +18,10 @@ where and names the discrete choice that flips first.
    ``pair_indices``); every step's in-loop contact set (the live queries
    with a positive depth against the frozen triangles); the signs of the
    2D joint residuals under the L1 self-consistency loss (its gradient is
-   the residual's sign); and the kinks of the finger prior (the signs of
-   ``|C1|`` and of ``min(0, C2)``). Per sample that leaves ``--tol`` at
+   the residual's sign); the kinks of the finger prior (the signs of
+   ``|C1|`` and of ``min(0, C2)``); and, for each query in contact, the
+   region of its frozen triangle (face, edge or vertex) that holds its
+   closest point (the depth's gradient follows it). Per sample that leaves ``--tol`` at
    some step: the first such step, the first step where each kind of
    choice differs between the engines, the first of those and the gap just
    before it, and whether the stage's snapshot choice differs.
@@ -48,6 +50,26 @@ from ihmr_tpu_torch.refine import opt_engine as TE
 from ihmr_tpu_torch.refine.schedule import opt_default
 
 
+def closest_regions(p: torch.Tensor, tri: torch.Tensor) -> torch.Tensor:
+    """The region of each triangle that holds the closest point to p, by the
+    predicates of ``ops.collision.point_triangle_closest`` in its priority
+    order: 0 face, 1 edge bc, 2 edge ac, 3 edge ab, 4 vertex c, 5 b, 6 a."""
+    a, b, c = tri[..., 0, :], tri[..., 1, :], tri[..., 2, :]
+    ab, ac = b - a, c - a
+    ap, bp, cp = p - a, p - b, p - c
+    d1, d2 = (ab * ap).sum(-1), (ac * ap).sum(-1)
+    d3, d4 = (ab * bp).sum(-1), (ac * bp).sum(-1)
+    d5, d6 = (ab * cp).sum(-1), (ac * cp).sum(-1)
+    va, vb, vc = d3 * d6 - d5 * d4, d5 * d2 - d1 * d6, d1 * d4 - d3 * d2
+    region = torch.zeros(d1.shape, dtype=torch.int8, device=p.device)
+    for code, inside in enumerate((
+        (va <= 0) & ((d4 - d3) >= 0) & ((d5 - d6) >= 0), (vb <= 0) & (d2 >= 0) & (d6 <= 0),
+        (vc <= 0) & (d1 >= 0) & (d3 <= 0), (d6 >= 0) & (d5 <= d6), (d3 >= 0) & (d4 <= d3), (d1 <= 0) & (d2 <= 0),
+    ), start=1):
+        region = torch.where(inside, torch.tensor(code, dtype=torch.int8, device=p.device), region)
+    return region
+
+
 class Recorder:
     """Per-step params, per-rebuild picks and per-step contact sets of one
     ``run_stage`` call, taken through the engine module's own names."""
@@ -56,6 +78,7 @@ class Recorder:
         self.steps = []  # {group: (B, d)} after each optimizer step
         self.picks = []  # (step, idx_r, idx_l) at each payload rebuild
         self.contacts = []  # (B, 2*Vq) bool, one per gradient evaluation
+        self.regions = []  # (B, 2*Vq) int8: closest_regions of the queries in contact, -1 elsewhere
         self.l1_signs = []  # (B, 84) signs of the 2D residuals, one per evaluation
         self.finger_signs = []  # (B, 20) signs of C1 and C2 < 0, one per evaluation
 
@@ -80,9 +103,12 @@ class Recorder:
             rec.picks.append((len(rec.steps), *(i.clone() for i in idx)))
             return idx
 
-        def pair_depths_at_tris(*args, **kwargs):
-            depths = saved["pair_depths_at_tris"](*args, **kwargs)
+        def pair_depths_at_tris(q_r, q_l, tri_r, tri_l, **kwargs):
+            depths = saved["pair_depths_at_tris"](q_r, q_l, tri_r, tri_l, **kwargs)
             rec.contacts.append((depths > 0).detach().clone())
+            with torch.no_grad():
+                region = torch.cat([closest_regions(q_r, tri_r), closest_regions(q_l, tri_l)], dim=1)
+            rec.regions.append(torch.where(depths > 0, region, torch.full_like(region, -1)))
             return depths
 
         def joints_2d_loss(gt, pred, weight):
@@ -144,14 +170,15 @@ def stage_drift(mano, entry, batch, stage, tol):
         return torch.stack([(x != y).sum(1) for x, y in zip(a, b)] or [none[0]])
 
     contact_diff = per_step(rh.contacts, rf.contacts)
+    region_diff = per_step(rh.regions, rf.regions)
     l1_diff = per_step(rh.l1_signs, rf.l1_signs)
     finger_diff = per_step(rh.finger_signs, rf.finger_signs)
     freq = TE.OptConfig().save_mid_freq
     choice = {h: _snapshot_choice(entry, recs[h], outs[h], groups, freq, B) for h in (True, False)}
     end_gap = _sample_gap(outs[True], outs[False], groups, B)
 
-    gaps, pick_diff, contact_diff, l1_diff, finger_diff, end_gap = (
-        t.cpu() for t in (gaps, pick_diff, contact_diff, l1_diff, finger_diff, end_gap))
+    gaps, pick_diff, contact_diff, region_diff, l1_diff, finger_diff, end_gap = (
+        t.cpu() for t in (gaps, pick_diff, contact_diff, region_diff, l1_diff, finger_diff, end_gap))
     samples = []
     for b in range(B):
         over = torch.nonzero(gaps[:, b] > tol).flatten()
@@ -165,7 +192,8 @@ def stage_drift(mano, entry, batch, stage, tol):
             # a rebuild at step s picks the triangles of the steps from s on
             events.append((pick_steps[first_pick], "nearest-face pick", int(pick_diff[first_pick, b])))
         first_at = {}
-        for kind, diff in (("contact set", contact_diff), ("L1 residual sign", l1_diff), ("finger-prior sign", finger_diff)):
+        for kind, diff in (("contact set", contact_diff), ("closest-point region", region_diff),
+                           ("L1 residual sign", l1_diff), ("finger-prior sign", finger_diff)):
             at = torch.nonzero(diff[:, b]).flatten()
             if len(at):
                 # evaluation t's choices drive the update of step t
@@ -195,6 +223,7 @@ def stage_drift(mano, entry, batch, stage, tol):
         rebuilds=len(rh.picks),
         samples_with_pick_flips=int((pick_diff > 0).any(0).sum()),
         samples_with_contact_flips=int((contact_diff > 0).any(0).sum()),
+        samples_with_region_flips=int((region_diff > 0).any(0).sum()),
         samples_with_l1_sign_flips=int((l1_diff > 0).any(0).sum()),
         samples_with_finger_sign_flips=int((finger_diff > 0).any(0).sum()),
         samples=samples,
@@ -206,7 +235,8 @@ def _print_stage(r, tol):
     print(f"stage {r['stage']} ({r['steps']} steps, {r['rebuilds']} payload rebuilds): samples above {tol} at the "
           f"end {r['samples_over_tol_at_end']}, at any step {r['samples_over_tol_at_any_step']}; largest end gap "
           f"{r['max_end_gap']:.3e}; samples whose choices differ at some step: nearest-face picks "
-          f"{r['samples_with_pick_flips']}, contact sets {r['samples_with_contact_flips']}, L1 residual signs "
+          f"{r['samples_with_pick_flips']}, contact sets {r['samples_with_contact_flips']}, closest-point regions "
+          f"{r['samples_with_region_flips']}, L1 residual signs "
           f"{r['samples_with_l1_sign_flips']}, finger-prior signs {r['samples_with_finger_sign_flips']}")
     for s in r["samples"]:
         ev = s["first_event"]

@@ -16,6 +16,7 @@ The main paths' own inputs at full width are here too, for timing:
 
     exact_main_inputs(device)    K1 on the OPT path's final pass, B=128 hands
     nearest_main_inputs(device)  K2 on an MLP train step, B=128 hands
+    RESNET50_BN                  K3's inputs in a ResNet-50 training step
 """
 
 from __future__ import annotations
@@ -26,6 +27,15 @@ import numpy as np
 import torch
 
 from ihmr_tpu_torch.mano.loader import _convex_hull_faces, _fibonacci_sphere
+
+
+# the 12 distinct BatchNorm input shapes of a ResNet-50 (v1.5: stride on the
+# 3x3) training step at 224x224, per sample (C, H, W) -> how many of its 53
+# BatchNorms take that shape
+RESNET50_BN = {
+    (64, 112, 112): 1, (64, 56, 56): 6, (256, 56, 56): 4, (128, 56, 56): 1, (128, 28, 28): 7, (512, 28, 28): 5,
+    (256, 28, 28): 1, (256, 14, 14): 11, (1024, 14, 14): 7, (512, 14, 14): 1, (512, 7, 7): 5, (2048, 7, 7): 4,
+}
 
 
 def _hand_pair(mano, rv, lv):

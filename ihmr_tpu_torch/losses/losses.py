@@ -3,6 +3,13 @@
 Each maps batch tensors to (scalar mean loss, per-sample loss (B,)) where the
 reference exposes a per-sample variant (those drive snapshot filtering), or
 to the scalar alone.
+
+At their kinks the losses take JAX's derivatives, not torch's: d|x|/dx is
++1 at x = 0 (``lax.abs`` selects on x >= 0; ``torch.abs`` gives 0 there),
+and min(0, x) splits the gradient in half at x = 0 (``jnp.minimum``;
+``torch.clamp(max=0)`` passes all of it). An L1 residual or a finger-prior
+term that lands exactly on 0 in fp32 otherwise moves the port's gradient,
+and over a long schedule its Adam trajectory, away from the JAX package's.
 """
 
 from __future__ import annotations
@@ -15,6 +22,11 @@ import torch
 from ihmr_tpu_torch.core.rotations import axis_angle_to_matrix
 
 _EPS = 1e-7
+
+
+def _abs(x: torch.Tensor) -> torch.Tensor:
+    """|x| whose derivative is +1 where x >= 0 (0 included), -1 elsewhere: JAX's."""
+    return torch.where(x >= 0, x, -x)
 
 # 4-joint chains (proximal -> tip) per finger in the 21-joint convention
 _FINGER_CHAINS = np.array(
@@ -62,7 +74,7 @@ def mano_pose_loss(
 
 def mano_shape_loss(gt_shape: torch.Tensor, pred_shape: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """Weighted L1 on betas."""
-    return ((gt_shape - pred_shape).abs() * weight).mean()
+    return (_abs(gt_shape - pred_shape) * weight).mean()
 
 
 def joints_2d_loss(
@@ -71,7 +83,7 @@ def joints_2d_loss(
     weight: torch.Tensor,  # (B, J, 1)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Weighted L1."""
-    w = (gt_joints - pred_joints).abs() * weight
+    w = _abs(gt_joints - pred_joints) * weight
     return w.mean(), w.reshape(w.shape[0], -1).mean(dim=1)
 
 
@@ -117,7 +129,7 @@ def shape_reg_loss(shape_params: torch.Tensor) -> Tuple[torch.Tensor, torch.Tens
 
 def shape_residual_loss(pred_shape: torch.Tensor, init_shape: torch.Tensor) -> torch.Tensor:
     """L1 to the initial betas."""
-    return (pred_shape - init_shape).abs().mean()
+    return _abs(pred_shape - init_shape).mean()
 
 
 def finger_terms(joints_3d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -136,6 +148,6 @@ def finger_reg_loss(joints_3d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor
     """Planarity/curl prior on each finger's 4-joint chain:
     loss = |C1| - min(0, C2) (``finger_terms``), summed over the 10 fingers."""
     C1, C2 = finger_terms(joints_3d)
-    loss = C1.abs() - torch.clamp(C2, max=0.0)  # (B, 10)
+    loss = _abs(C1) - torch.minimum(torch.zeros_like(C2), C2)  # (B, 10)
     per_sample = loss.sum(dim=1)
     return per_sample.mean(), per_sample

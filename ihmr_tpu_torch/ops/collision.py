@@ -86,7 +86,7 @@ def _shell_depth(dist: torch.Tensor, inside: torch.Tensor, margin: float) -> tor
     if margin == 0.0:
         return torch.where(inside, dist, torch.zeros_like(dist))
     signed = torch.where(inside, -dist, dist)
-    return torch.clamp(margin - signed, min=0.0)
+    return torch.maximum(margin - signed, torch.zeros_like(signed))  # jnp.maximum's tie gradient
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -147,7 +147,8 @@ def _depth_at_tris_single(query: torch.Tensor, tri_best: torch.Tensor, margin: f
     """(..., V, 3) live queries vs (..., V, 3, 3) pre-built triangles -> (..., V)."""
     closest = point_triangle_closest(query, tri_best)
     diff = query - closest
-    dist = torch.sqrt(torch.clamp((diff * diff).sum(-1), min=_EPS))
+    d2 = (diff * diff).sum(-1)
+    dist = torch.sqrt(torch.maximum(d2, torch.full_like(d2, _EPS)))  # jnp.maximum's tie gradient
     normal = torch.linalg.cross(tri_best[..., 1, :] - tri_best[..., 0, :], tri_best[..., 2, :] - tri_best[..., 0, :])
     inside = (diff * normal).sum(-1) < 0
     return _shell_depth(dist, inside, margin)

@@ -1,9 +1,10 @@
 """Where the time of a baseline train step goes on the card.
 
-    python -m ihmr_tpu_torch.profile_train [--batch 64] [--steps 10] [--bn_impl pallas]
+    python -m ihmr_tpu_torch.profile_train [--batch 64] [--steps 10] [--bn_impl pallas] [--bf16]
 
 Runs the training workload of ``pipeline.py`` at full width (ResNet-50 at
-224x224, B images, ``TrainConfig(total_epoch=1)``, fp32 without TF32,
+224x224, B images, ``TrainConfig(total_epoch=1)``, fp32 without TF32, or
+with ``--bf16`` the encoder computing in bf16 as the CLI's ``--bf16`` does,
 train-mode BatchNorm by ``--bn_impl``), after a two-step warm-up:
 
   * host-clock ms per step over ``--steps`` steps of ``train_baseline_loop``
@@ -11,7 +12,9 @@ train-mode BatchNorm by ``--bn_impl``), after a two-step warm-up:
   * one profiled step under ``torch.profiler`` (CPU + CUDA): device busy
     time (the union of kernel intervals) against the step's wall time, i.e.
     the device's idle share, kernel launches, the launches of the
-    BatchNorm-statistics kernel K3, and the kernels with the most device time.
+    BatchNorm-statistics kernel K3 (counted by the wrapper and as device
+    kernels whose name holds ``bn_stats``), K3's device time and its share
+    of the busy time, and the kernels with the most device time.
 
 Prints a readable report and, last, one JSON line with the numbers. Needs a
 CUDA card.
@@ -39,13 +42,15 @@ def main():
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--bn_impl", default="pallas", choices=["stock", "fused", "pallas"])
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--bf16", action="store_true", help="the encoder in bf16 (the CLI's --bf16)")
     args = ap.parse_args()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
-    inputs = make_train_bench_inputs(batch=args.batch, bn_impl=args.bn_impl, device="cuda")
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    inputs = make_train_bench_inputs(batch=args.batch, bn_impl=args.bn_impl, device="cuda", dtype=dtype)
     run_train_pipeline(inputs, 2, evaluate=False)  # warm-up
     run = run_train_pipeline(inputs, args.steps, evaluate=False)
     ms = run.step_seconds / args.steps * 1e3
@@ -65,7 +70,7 @@ def main():
         wall = time.perf_counter() - t0
     busy, n_kernels, by_name = _device_busy(prof)
 
-    print(f"card: {smi}; batch {args.batch}, bn_impl {args.bn_impl}")
+    print(f"card: {smi}; batch {args.batch}, bn_impl {args.bn_impl}, {'bf16' if args.bf16 else 'fp32'}")
     print(f"{args.steps} steps: {ms:.3f} ms/step -> {args.batch / ms * 1e3:.3f} images/sec")
     print(
         f"profiled step: wall {wall * 1e3:.2f} ms, device busy {busy * 1e3:.2f} ms, idle share "
@@ -75,12 +80,14 @@ def main():
     for name, (sec, cnt) in top:
         print(f"  {sec * 1e3:9.3f} ms {cnt:6d}x  {name[:110]}")
     k3_ms = sum(sec for name, (sec, _) in by_name.items() if "bn_stats" in name) * 1e3
-    print(f"  bn_stats kernels (partial + combine): {k3_ms:.3f} ms of device time in the step")
+    k3_kernels = sum(cnt for name, (_, cnt) in by_name.items() if "bn_stats" in name)
+    print(f"  bn_stats: {k3_kernels} device kernels, {k3_ms:.3f} ms of device time in the step, "
+          f"{k3_ms / (busy * 1e3):.4f} of the busy time")
     print(json.dumps({
-        "card": smi, "batch": args.batch, "bn_impl": args.bn_impl, "ms_per_step": ms,
+        "card": smi, "batch": args.batch, "bn_impl": args.bn_impl, "bf16": args.bf16, "ms_per_step": ms,
         "images_per_sec": args.batch / ms * 1e3, "profiled_wall_ms": wall * 1e3, "device_busy_ms": busy * 1e3,
         "idle_share": 1 - busy / wall, "kernels_per_step": n_kernels, "bn_stats_launches": K3.launch_count,
-        "bn_stats_device_ms": k3_ms,
+        "bn_stats_device_ms": k3_ms, "bn_stats_device_kernels": k3_kernels, "bn_stats_busy_share": k3_ms / (busy * 1e3),
         "top_kernels_ms": [[name, sec * 1e3] for name, (sec, _) in top[:8]],
     }))
 

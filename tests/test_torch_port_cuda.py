@@ -40,6 +40,7 @@ on a bf16 activation.
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -74,6 +75,7 @@ from ihmr_tpu_torch.pipeline import (
 )
 from ihmr_tpu_torch.refine import OptConfig, TwoHandTracker, forward, opt_default, optimize_batch, streaming_strategy
 from ihmr_tpu_torch.refine.mlp_engine import seed_from_backbone
+from ihmr_tpu_torch.timing import device_kernels
 
 pytestmark = pytest.mark.cuda
 
@@ -208,15 +210,25 @@ def test_short_mlp_training_matches_cpu(cuda):
         assert gap <= SHORT_MLP_TOL[k], (k, gap)
 
 
-@pytest.mark.parametrize("shape,dtype", [
-    ((3, 5, 7, 11), torch.float32),  # ragged: scalar loads
-    ((8, 64, 28, 28), torch.float32),  # vector loads, several slices
-    ((8, 32, 14, 14), torch.bfloat16),
-    ((1061, 24), torch.float32),  # (rows, C), the JAX function's layout
+@pytest.mark.parametrize("shape,dtype,offset", [
+    ((3, 5, 7, 11), torch.float32, 0),  # ragged: masked scalar loads
+    ((8, 64, 28, 28), torch.float32, 0),  # runs path, several slices
+    ((8, 32, 14, 14), torch.bfloat16, 0),
+    ((1061, 24), torch.float32, 0),  # (rows, C), the JAX function's layout
+    ((8, 2048, 7, 7), torch.bfloat16, 0),  # tiles path: 7x7 in 16-byte loads
+    ((8, 256, 14, 14), torch.bfloat16, 0),
+    ((8, 512, 7, 7), torch.float32, 0),
+    ((1, 2048, 7, 7), torch.float32, 0),  # B=1: one slice, no combine
+    ((8, 1025, 14, 14), torch.float32, 0),  # C not a multiple of the channel tile
+    ((8, 256, 14, 14), torch.float32, 1),  # base not 16-byte aligned: the masked walk
+    ((8, 64, 28, 28), torch.bfloat16, 1),
 ])
-def test_bn_stats_kernel_matches_float64(cuda, shape, dtype):
+def test_bn_stats_kernel_matches_float64(cuda, shape, dtype, offset):
     gen = torch.Generator(device="cuda").manual_seed(0)
-    x = (torch.randn(shape, generator=gen, device="cuda") * 2.0 + 0.5).to(dtype)
+    flat = (torch.randn((math.prod(shape) + offset,), generator=gen, device="cuda") * 2.0 + 0.5).to(dtype)
+    x = flat[offset:].view(shape)  # contiguous; offset 1 moves its base off 16-byte alignment
+    plan = K3.launch_plan(shape, x.element_size(), x.data_ptr() % 16 == 0)
+    assert (x.data_ptr() % 16 == 0) == (offset == 0) and (not plan.vector if offset else True)
     K3.reset_launch_count()
     s, s2 = K3._launch_kernel(x)
     torch.cuda.synchronize()
@@ -226,8 +238,14 @@ def test_bn_stats_kernel_matches_float64(cuda, shape, dtype):
     ref_s, ref_q = x64.sum(dims), (x64 * x64).sum(dims)
     assert float(((s.double() - ref_s).abs() / x64.abs().sum(dims)).max()) <= 1e-5
     assert float(((s2.double() - ref_q).abs() / ref_q).max()) <= 1e-5
-    again = K3._launch_kernel(x)
-    assert torch.equal(s, again[0]) and torch.equal(s2, again[1])  # no atomics: the same bits
+    again = []
+
+    def launch():  # keeps the recorded (third) call's sums
+        again[:] = K3._launch_kernel(x)
+
+    kernels = device_kernels(launch)
+    assert len(kernels) == 1 and "bn_stats" in kernels[0], kernels  # one device kernel a call
+    assert torch.equal(s, again[0]) and torch.equal(s2, again[1])  # no float atomics: the same bits
 
     xg = x.clone().requires_grad_(True)
     gs, gs2 = torch.randn((2, x.shape[1]), generator=gen, device="cuda")
@@ -248,6 +266,32 @@ def test_bn_stats_kernel_raises_on_other_layouts(cuda):
     with pytest.raises(ValueError):
         K3.bn_stats(x.half())
     assert K3.launch_count == 0
+
+
+def test_bn_stats_streams_keep_their_own_tickets(cuda):
+    """Launches on two streams at once, on a runs-path shape whose channels
+    span several slices (the ticket counters in use), give the one-stream
+    results bit for bit; the first launch on a new stream inside a CUDA graph
+    capture raises (its counters would not be zeroed before the graph runs)."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    xs = [torch.randn((64, 128, 28, 28), generator=gen, device="cuda") for _ in range(2)]
+    plan = K3.launch_plan(tuple(xs[0].shape), 4)
+    assert plan.path == "runs" and plan.slices > 1
+    want = [K3._launch_kernel(x) for x in xs]
+    streams = [torch.cuda.Stream() for _ in xs]
+    torch.cuda.synchronize()
+    got = [None, None]
+    for _ in range(10):  # interleaved, so that the streams' launches overlap
+        for i, (x, s) in enumerate(zip(xs, streams)):
+            with torch.cuda.stream(s):
+                got[i] = K3._launch_kernel(x)
+    torch.cuda.synchronize()
+    for (s, s2), (gs, gs2) in zip(want, got):
+        assert torch.equal(s, gs) and torch.equal(s2, gs2)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="capture"):
+        with torch.cuda.graph(graph, stream=torch.cuda.Stream()):
+            K3._launch_kernel(xs[0])
 
 
 def test_short_training_matches_cpu(cuda):

@@ -19,6 +19,18 @@ it computes, and these tests check the claims that make the change exact:
 * K2: the minimum of each tile, the first tile with the smallest, and a
   second walk of that tile (from a per-lane offset) for the sum and count
   of the tied indices give the plain version's indices.
+* K3 (``csrc/bn_stats.cu``): the launch plan covers every (sample, channel)
+  once, with 16-byte loads, aligned spans and one wave of blocks at every
+  BatchNorm shape of a ResNet-50 step; the two paths' work split and
+  summation order (the runs path's load streams, rounds, accumulators,
+  block tree and slice combine; the tiles path's channel-group spans, row
+  groups, column attribution and per-channel warp trees) hold the plain
+  version's sums within 1e-5 (sum x relative to sum |x|, sum x^2 relative:
+  fp32 sums in another order; the kernel fuses each square into its sum,
+  mirrored through float64) on the 12 shapes at B=2 in fp32 and bf16, a
+  ragged (3, 5, 7, 11), a (rows, C) matrix, a C that is no multiple of the
+  channel tile and an unaligned base; on integer data, where every order is
+  exact, bit for bit.
 
 Each mirror is written op for op in fp32 torch, so it rounds as the kernel
 (built with --fmad=false) does. Tolerance: bits equal, except the direction
@@ -32,6 +44,7 @@ import pytest
 import torch
 
 from ihmr_tpu_torch import kernel_cases
+from ihmr_tpu_torch.ops import bn_stats as K3
 from ihmr_tpu_torch.ops import exact_collision as K
 from ihmr_tpu_torch.ops import nearest_centroid as NC
 from tests.torch_threads import one_torch_thread  # noqa: F401
@@ -329,3 +342,190 @@ def test_nearest_tile_minima_match_plain_version(label):
         V = q.shape[1]
         for n, pick in enumerate(picks):
             assert bool((ref[n, :V] == pick).all()), (n, ref[n, :V].tolist())
+
+
+# K3: csrc/bn_stats.cu's work split and summation order, mirrored in fp32 torch
+
+RESNET50_BN = kernel_cases.RESNET50_BN
+K3_WARPS = K3.THREADS // 32
+
+
+def _warp_tree(a):
+    """A shfl_down tree over the last axis (32 lanes): lane 0's value."""
+    for off in (16, 8, 4, 2, 1):
+        a = a[..., :off] + a[..., off:2 * off]
+    return a[..., 0]
+
+
+def _seq(a, dim):
+    """0 + a[0] + a[1] + ... along ``dim``, in fp32, in that order."""
+    out = torch.zeros_like(a.select(dim, 0))
+    for i in range(a.shape[dim]):
+        out = out + a.select(dim, i)
+    return out
+
+
+def _fma(a, b, c):
+    """a * b + c rounded once to fp32 (through float64, where a * b is exact)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _seq_squares(a, dim):
+    """q = fma(a[i], a[i], q) for i along ``dim`` in order, from 0."""
+    out = torch.zeros_like(a.select(dim, 0))
+    for i in range(a.shape[dim]):
+        v = a.select(dim, i)
+        out = _fma(v, v, out)
+    return out
+
+
+def _pairwise(a):
+    """csrc/bn_stats.cu::add_values' sum of a load's lanes (last axis)."""
+    t = list(a.unbind(-1))
+    w = 1
+    while w < len(t):
+        for l in range(0, len(t) - w, 2 * w):
+            t[l] = t[l] + t[l + w]
+        w *= 2
+    return t[0]
+
+
+def _block_sum(v):
+    """csrc/bn_stats.cu::block_sum over the last axis (the block's threads)."""
+    return _seq(_warp_tree(v.reshape(*v.shape[:-1], K3_WARPS, 32)), -1)
+
+
+def _combine_runs(part, slices):
+    """One warp over each row's slice partials (lane l takes l, l + 32, ...),
+    then a tree."""
+    if slices == 1:
+        return part[:, 0]
+    k = -(-slices // 32) * 32
+    lanes = torch.cat([part, part.new_zeros(part.shape[0], k - slices)], 1).reshape(part.shape[0], -1, 32)
+    return _warp_tree(_seq(lanes, 1))
+
+
+def bn_runs_mirror(xf, p, elem):
+    """The runs path: per item (channel, slice) the slice's rows x (hw / U)
+    loads numbered as one range, load j taken by thread j % T in round
+    j // (L T) as its stream (j // T) % L (L = LOADS / 2); each load's lanes
+    summed pairwise and its squares fused one by one into the stream's
+    accumulator (stream m into m % 2), rounds in order; the two accumulators
+    added, the block's threads by block_sum; the slices' partials by warp 0."""
+    B, C, hw, T, L = p.batch, p.channels, p.hw, K3.THREADS, K3.LOADS // 2  # loads a round
+    U = 16 // elem if p.vector else 1  # elements a load
+    rows = torch.zeros((p.slices * p.rows, C, hw))
+    rows[:B] = xf.reshape(B, C, hw)
+    data = rows.reshape(p.slices, p.rows, C, hw).permute(2, 0, 1, 3).reshape(C, p.slices, -1, U)
+    n = data.shape[2]
+    data = torch.cat([data, data.new_zeros(C, p.slices, -(-n // (L * T)) * L * T - n, U)], 2)
+    data = data.reshape(C, p.slices, -1, L // 2, 2, T, U)  # (item..., round, m // 2, m % 2, thread, lane)
+    data = data.permute(0, 1, 4, 5, 2, 3, 6).reshape(C, p.slices, 2, T, -1, U)  # loads of an accumulator in order
+    s = _seq(_pairwise(data), 4)
+    q = _seq_squares(data.reshape(C, p.slices, 2, T, -1), 4)
+    return tuple(_combine_runs(_block_sum(a[:, :, 0] + a[:, :, 1]), p.slices) for a in (s, q))
+
+
+def bn_tiles_mirror(xf, p, elem):
+    """The tiles path: per group of ct channels over the whole batch, its
+    span of ct * hw columns in each sample, cut into 16-byte slots (W lanes
+    each); row group rg = t // slots of the block's THREADS // slots sums
+    samples rg, rg + row_groups, ... in order (masked columns and samples add
+    0), squares fused one by one; the row groups' columns added in row-group
+    order; then channel ch of the group as lanes over its hw columns (lane l
+    takes l, l + 32, ...) and a warp tree."""
+    B, C, hw, ct = p.batch, p.channels, p.hw, p.ct
+    W = 16 // elem
+    slots = -(-ct * hw // W)
+    row_groups = K3.THREADS // slots
+    n = -(-B // row_groups)
+    span = torch.zeros((n * row_groups, p.groups * ct, hw))
+    span[:B, :C] = xf.reshape(B, C, hw)
+    span = span.reshape(n, row_groups, p.groups, ct * hw).permute(2, 0, 1, 3)  # (groups, n, row group, cols)
+    out = []
+    for cols in (_seq(span, 1), _seq_squares(span, 1)):
+        cols = _seq(cols, 1).reshape(p.groups, ct, hw)  # the row groups in order
+        k = -(-hw // 32) * 32
+        lanes = torch.cat([cols, cols.new_zeros(p.groups, ct, k - hw)], -1).reshape(p.groups, ct, -1, 32)
+        out.append(_warp_tree(_seq(lanes, 2)).reshape(-1)[:C])
+    return tuple(out)
+
+
+def bn_mirror(x, aligned=True):
+    """(the launch plan, the mirror's (sums, sums of squares)) of ``x``."""
+    p = K3.launch_plan(tuple(x.shape), x.element_size(), aligned)
+    mirror = bn_runs_mirror if p.path == "runs" else bn_tiles_mirror
+    return p, mirror(x.float(), p, x.element_size())
+
+
+K3_SHAPES = [(2, *s) for s in RESNET50_BN] + [(3, 5, 7, 11), (1061, 24)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", K3_SHAPES)
+def test_bn_stats_mirror_matches_plain_version(shape, dtype):
+    """Each channel's sums within 1e-5 of the plain version's (sum x relative
+    to sum |x|, sum x^2 relative), both paths and the masked walk of an
+    unaligned base; on integer data, where every order of fp32 sums is exact,
+    equal: every element is counted once, in its own channel."""
+    gen = torch.Generator().manual_seed(0)
+    x = (torch.randn(shape, generator=gen) * 2.0 + 0.5).to(dtype)
+    whole = torch.randint(-8, 9, shape, generator=gen).to(dtype)
+    ref = K3.bn_stats_reference(x)
+    dims = (0,) + tuple(range(2, x.dim()))
+    scale = x.float().abs().sum(dims)
+    for aligned in (True, False):
+        p, (s, s2) = bn_mirror(x, aligned)
+        assert p.vector == (aligned and (p.hw if p.path == "runs" else p.channels * p.hw) % (16 // x.element_size()) == 0)
+        assert float(((s - ref[0]).abs() / scale).max()) <= 1e-5
+        assert float(((s2 - ref[1]).abs() / ref[1]).max()) <= 1e-5
+        _, (ws, ws2) = bn_mirror(whole, aligned)
+        wref = K3.bn_stats_reference(whole)
+        assert torch.equal(ws, wref[0]) and torch.equal(ws2, wref[1])
+
+
+def test_bn_stats_mirror_ragged_channel_tail():
+    """C not a multiple of the channel tile: the last group is shorter and
+    its masked columns add nothing."""
+    x = torch.randint(-8, 9, (4, 1025, 14, 14)).float()
+    p = K3.launch_plan(tuple(x.shape), 4)
+    assert p.path == "tiles" and p.channels % p.ct != 0 and p.vector
+    _, (s, s2) = bn_mirror(x)
+    ref = K3.bn_stats_reference(x)
+    assert torch.equal(s, ref[0]) and torch.equal(s2, ref[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_stats_plan_of_a_training_step(dtype):
+    """The 53 BatchNorms of a ResNet-50 step at B=64: each one launch of one
+    grid with 16-byte loads, at most one wave of blocks, every (sample,
+    channel) in exactly one item; on the tiles path each group's span starts
+    16-byte aligned in every sample and is a whole number of vectors."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    width = 16 // es
+    assert sum(RESNET50_BN.values()) == 53
+    for (C, H, W), _n in RESNET50_BN.items():
+        p = K3.launch_plan((64, C, H, W), es)
+        assert p.vector, p
+        assert 1 <= p.grid <= K3.SLOTS and p.grid == min(p.items, K3.SLOTS), p
+        assert p.groups * p.ct >= C > (p.groups - 1) * p.ct
+        assert p.slices * p.rows >= 64 > (p.slices - 1) * p.rows
+        if p.path == "tiles":
+            assert p.ct * p.hw <= K3.THREADS * width and p.slices == 1 and p.rows == 64 and p.groups <= K3.SLOTS
+            starts = [(b * C * p.hw + g * p.ct * p.hw) * es for b in range(64) for g in range(p.groups)]
+            assert all(s % 16 == 0 for s in starts)
+            assert all(min(p.ct, C - g * p.ct) * p.hw % width == 0 for g in range(p.groups))
+            # 7x7 and 14x14 (and 28x28 in neither dtype: its runs are whole vectors of more than 1 KB)
+            assert H <= 14 and p.scratch_floats == 0
+        else:
+            assert p.ct == 1 and p.hw % width == 0 and H >= 28
+            assert p.scratch_floats == (2 * p.items if p.slices > 1 else 0) and p.groups == C
+
+
+@pytest.mark.parametrize("shape", [(64, 2048, 7, 7), (8, 256, 14, 14), (64, 64, 112, 112), (3, 5, 7, 11)])
+def test_bn_stats_plan_of_an_unaligned_base_masks(shape):
+    """A base that is not 16-byte aligned takes the masked scalar walk of the
+    same path and grid."""
+    for es in (4, 2):
+        a, u = K3.launch_plan(shape, es, True), K3.launch_plan(shape, es, False)
+        assert not u.vector and u._replace(vector=a.vector) == a

@@ -291,6 +291,29 @@ def test_batch_moments_plain_vs_pallas_nchw(dtype):
     assert ours[0].dtype == torch.float32
 
 
+def test_batch_moments_takes_jax_derivative_at_zero_variance():
+    """A channel of (1, 1 + 2^-12) whose fp32 variance cancels to exactly 0:
+    JAX's max(0, v) splits the gradient 0.5 / 0.5 there, and so must the
+    port (clamp(min=0) passes all of it: twice JAX's gradient). Beside it a
+    constant channel and an ordinary one. Every value is exact in fp32."""
+    x = np.array([[1.0, 2.0, 0.5], [1.0 + 2.0**-12, 2.0, -1.5]], np.float32)  # (B=2, C=3)
+    g_mean, g_var = np.array([[0.0, 1.0, 0.5], [1.0, 1.0, -2.0]], np.float32)
+
+    def weighted(v):
+        mean, var = pallas_bn.batch_moments(v)
+        return jnp.sum(mean * g_mean + var * g_var)
+
+    ref_var = np.asarray(jax.jit(pallas_bn.batch_moments)(jnp.asarray(x))[1])
+    ref_g = np.asarray(jax.jit(jax.grad(weighted))(jnp.asarray(x)))
+    xt = T(x).reshape(2, 3, 1, 1).requires_grad_(True)
+    mean, var = K3.batch_moments(xt)
+    (mean * T(g_mean) + var * T(g_var)).sum().backward()
+    assert ref_var[0] == 0.0 and float(var.detach()[0]) == 0.0  # the cancellation case
+    np.testing.assert_array_equal(var.detach().numpy(), ref_var)
+    np.testing.assert_array_equal(xt.grad.reshape(2, 3).numpy(), ref_g)
+    assert ref_g[1, 0] == 2.0**-14  # half of d var / dx = 2 (x - mean) / n
+
+
 def test_bn_stats_cpu_path_counts_no_launch():
     K3.reset_launch_count()
     K3.bn_stats(torch.rand(2, 3, 4, 4))
@@ -304,17 +327,26 @@ def test_bn_stats_cpu_path_counts_no_launch():
     ((3, 5, 7, 11), 4, True), ((64, 512, 14, 14), 4, False), ((1061, 24), 4, True),
 ])
 def test_bn_stats_launch_plan_covers_every_run(shape, size, aligned):
-    """Every run of every channel goes to exactly one team of one block."""
+    """Every run (one channel of one sample) goes to exactly one item (channel
+    group, slice of the batch) of one grid of at most one wave of blocks; on
+    the runs path a slice holds at least one round of loads a thread unless
+    the batch is smaller, on the tiles path a group takes the whole batch."""
     p = K3.launch_plan(shape, size, aligned)
-    assert p.team in (32, 64, 128, 256) and 1 <= p.slices <= p.batch
-    assert p.vector == (aligned and p.hw % (16 // size) == 0)
-    loads = p.hw // (16 // size) if p.vector else p.hw
-    assert p.team >= min(256, loads) and (p.team == 32 or p.team // 2 < loads)
-    teams = K3.THREADS // p.team
-    runs = sorted(b for s in range(p.slices) for t in range(teams)
-                  for b in range(s * p.runs_per_slice + t, min(p.batch, (s + 1) * p.runs_per_slice), teams))
-    assert runs == list(range(p.batch))
-    assert p.channels * p.slices >= min(K3.TARGET_BLOCKS // 2, p.channels * -(-p.batch // teams))
+    width = 16 // size
+    assert p.path in ("runs", "tiles") and 1 <= p.slices <= p.batch and 1 <= p.grid <= min(p.items, K3.SLOTS)
+    if p.path == "runs":
+        assert p.ct == 1 and p.vector == (aligned and p.hw % width == 0)
+    else:
+        assert p.ct * p.hw <= K3.THREADS * width and p.vector == (aligned and p.channels * p.hw % width == 0)
+        assert p.slices == 1 and p.groups <= max(K3.SLOTS, -(-p.channels // p.ct))
+    runs = sorted((b, c) for g in range(p.groups) for k in range(p.slices)
+                  for b in range(k * p.rows, min(p.batch, (k + 1) * p.rows))
+                  for c in range(g * p.ct, min(p.channels, (g + 1) * p.ct)))
+    assert runs == [(b, c) for b in range(p.batch) for c in range(p.channels)]
+    if p.path == "runs":  # slices: enough to fill the wave, but each at least the samples LOADS loads a thread cover
+        round_rows = -(-K3.LOADS * K3.THREADS // (p.hw // (width if p.vector else 1)))
+        assert p.rows >= min(p.batch, round_rows)
+        assert p.slices >= max(1, min(p.batch // round_rows, K3.SLOTS // p.groups) // 2)
 
 
 def _flax_bn(impl):
