@@ -150,7 +150,32 @@ Phases (each raises on failure; any failure exits non-zero before the last line)
    backbone layer's input bf16 in the bf16 encoder and each bf16 output
    apart from the fp32 one, with no kernel launched; the tracker (B=2, 2
    frames of streaming_strategy(6) and a third at its default 4 x 31
-   steps) within SMALL_PARAM_TOL.
+   steps) within SMALL_PARAM_TOL; and (after phase 13) the in-loop
+   collision paths at B=4 (pipeline.run_short_collision_paths: JAX's
+   per-stage SGD programs, the two-pass escalation, the grid in the loop)
+   within pipeline.SHORT_COLLISION_TOL, escalation masks equal.
+13. Every in-loop collision path at full width (run before phase 12's
+   small checks): the synthetic MANO hand, B=128, opt_default with each
+   stage cut to COLLISION_EPOCH=40 (41 of 301 steps), save_mid_freq=10,
+   each run from counts zeroed just before it and read just after, with
+   its hands/sec and peak device memory beside the card's name and power
+   limit. (a) Escalation at ESCALATE_THRESHOLD=0.5 (warm start 0.5, the
+   fast build) on make_opt_inputs(variant="interlocked", seed=0), then on
+   the standard family: the flagged count, the bucket, the escalated
+   count, pass 1's and the merged mean exact collision; no sample's exact
+   collision rises, unflagged samples keep pass 1's bits, K1 launches 2
+   when a sample is flagged, else 1. (b) The grid in the loop at JAX's
+   default knobs (res 32, K=8, full faces): K1 once. (c) The default
+   engine, per-step reselection and tracked positions, in turns (default,
+   eager, tracked, tracked, eager, default): K1 once each. (d) K1 in the
+   loop (loop_collision_fast=False, stride 1): K1 launches = the 164
+   gradient steps + 1; at the run's initial and refined params, K1 at the
+   loop's shape (2B=256 queries, every second face: 769) against its plain
+   version, and one step's collision gradient with the kernel against the
+   same step with the plain version on the card, within 1e-5 of its
+   largest entry. Then ``optimize --escalate_collision 0.5`` and
+   ``optimize --loop_collision_backend grid`` through the CLI on 16 files
+   (write_corpus seed 2), B=8, stages cut to epoch 20: finite metrics.
 
 The run's time in all is printed beside the card's name and power limit.
 
@@ -161,6 +186,7 @@ unavailable or the ihmr_tpu_torch package is not beside this script.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -1156,6 +1182,235 @@ def phase_cli_small(dev):
         raise AssertionError(f"{loaded} imported")
 
 
+COLLISION_EPOCH = 40  # each opt_default stage cut to 41 steps in phase 13 (the full schedule has 301)
+COLLISION_BATCH = 128
+LOOP_GRAD_TOL = 1e-5  # K1's in-loop gradient vs the plain version's, of its largest entry (as the CUDA test)
+ESCALATE_THRESHOLD = 0.5  # scripts/escalation_bench.py's threshold
+
+
+def _opt_run(mano, params, batch, config, smi, label):
+    """optimize_batch over opt_default cut to COLLISION_EPOCH, from counts
+    zeroed just before it and read just after -> (refined params, results,
+    launch counts, hands/sec, peak GiB)."""
+    from ihmr_tpu_torch.refine import opt_default, optimize_batch
+
+    strategy = tuple(dataclasses.replace(s, epoch=COLLISION_EPOCH) for s in opt_default)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    params_out, results = optimize_batch(mano, params, batch, strategy, config)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    B = batch.hand_type_array.shape[0]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  {label}: {dt:.3f}s -> {B / dt:.3f} hands/sec, peak device memory {peak:.3f} GiB, launches {counts}, "
+        f"final mean collision {float(results['collision_loss'].mean()):.5f} (on {smi})")
+    bad = [k for k, v in {**params_out, **results}.items() if not bool(torch.isfinite(v).all())]
+    if bad:
+        raise AssertionError(f"{label}: non-finite outputs {bad}")
+    return params_out, results, counts, B / dt, peak
+
+
+def _escalation(mano, variant, smi):
+    """Part (a) on one family: the escalated run with pass 1 and pass 2
+    recorded (``optimize_batch`` is what escalation calls for each pass)."""
+    from ihmr_tpu_torch.data import make_opt_inputs
+    from ihmr_tpu_torch.refine import OptConfig
+    from ihmr_tpu_torch.refine import opt_engine as TE
+
+    params, batch = make_opt_inputs(mano, batch=COLLISION_BATCH, seed=0, variant=variant)
+    passes, inner = [], TE.optimize_batch
+
+    def recording(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        passes.append((args[2].hand_type_array.shape[0], out, time.perf_counter() - t0))
+        return out
+
+    TE.optimize_batch = recording
+    try:
+        out, res, counts, rate, peak = _opt_run(
+            mano, params, batch, OptConfig(save_mid_freq=10, escalate_collision=ESCALATE_THRESHOLD), smi,
+            f"escalation on the {variant} family (threshold {ESCALATE_THRESHOLD})")
+    finally:
+        TE.optimize_batch = inner
+    (_, (p1, r1), pass1_s) = passes[0]
+    coll1, coll = r1["collision_loss"], res["collision_loss"]
+    flagged = int((coll1 > ESCALATE_THRESHOLD).sum())
+    esc = res["escalated"].bool()
+    bucket = passes[1][0] if len(passes) > 1 else 0
+    pass2_s = passes[1][2] if len(passes) > 1 else 0.0
+    log(f"    flagged {flagged}/{COLLISION_BATCH}, bucket {bucket}, escalated {int(esc.sum())}; mean exact final collision pass 1 "
+        f"{float(coll1.mean()):.5f}, merged {float(coll.mean()):.5f}; pass 1 {pass1_s:.3f}s, pass 2 {pass2_s:.3f}s")
+    if len(passes) != (2 if flagged else 1) or (flagged and bucket < flagged):
+        raise AssertionError(f"escalation ran {len(passes)} passes (bucket {bucket}) for {flagged} flagged samples")
+    if bool((coll > coll1).any()):
+        raise AssertionError("escalation raised a sample's exact collision")
+    kept = ~esc
+    if not all(torch.equal(out[k][kept], p1[k][kept]) for k in out) or not torch.equal(coll[kept], coll1[kept]):
+        raise AssertionError("escalation changed a sample it did not escalate")
+    if bool((esc & (coll1 <= ESCALATE_THRESHOLD)).any()):
+        raise AssertionError("escalation took a sample it did not flag")
+    check_counts(f"escalation ({variant})", counts, exact_collision=2 if flagged else 1, nearest_centroid=0,
+                 bn_stats=0)
+    return counts, dict(flagged=flagged, bucket=bucket, escalated=int(esc.sum()), rate=rate, peak=peak,
+                        coll1=float(coll1.mean()), coll=float(coll.mean()))
+
+
+@contextlib.contextmanager
+def _k1_plain_version():
+    """K1's wrapper takes its plain version on the card instead of launching
+    the kernel (for comparisons only: nothing is counted)."""
+    from ihmr_tpu_torch.ops import exact_collision as K
+
+    launch = K._launch_kernel
+    K._launch_kernel = lambda q, tri, bounds, n_tri: K.exact_penetration_depth_reference(q, tri, bounds, n_tri)[:2]
+    try:
+        yield
+    finally:
+        K._launch_kernel = launch
+
+
+def _k1_loop_checks(mano, params, batch, config, label):
+    """K1 at the shape the loop gives it: both directions of the hands at
+    ``params`` against every ``loop_collision_face_subsample``-th face, kernel
+    against plain version; then one in-loop step's collision gradient (the
+    kernel's forward and its dir-based backward) against the same step with
+    the plain version, on the same card and inputs."""
+    from ihmr_tpu_torch import kernel_cases
+    from ihmr_tpu_torch.ops import exact_collision as K
+    from ihmr_tpu_torch.refine import compute_losses, forward, opt_default
+
+    fsub = config.loop_collision_face_subsample
+    with torch.no_grad():
+        rv, lv, _, _ = forward(mano, params)
+    q, tri = kernel_cases.hand_pair(mano, rv, lv, fsub)
+    _compare_exact(q, tri, f"K1 in the loop, {label}, faces[::{fsub}]")
+
+    def coll_grads():
+        leaves = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+        _, aux = compute_losses(mano, leaves, batch, opt_default[1].weights, config, in_loop=True)
+        grads = torch.autograd.grad(aux["collision_loss"], list(leaves.values()), allow_unused=True)
+        return {k: g for k, g in zip(leaves, grads) if g is not None}
+
+    K.reset_launch_count()
+    kernel = coll_grads()
+    torch.cuda.synchronize()
+    launches = K.launch_count
+    with _k1_plain_version():
+        plain = coll_grads()
+    scale = max(float(g.abs().max()) for g in plain.values())
+    err = max(float((kernel[k] - plain[k]).abs().max()) for k in plain)
+    log(f"  [K1 in the loop, {label}] one step's collision gradient over {sorted(plain)}: kernel vs plain version "
+        f"max |gap| {err:.3e}, largest entry {scale:.3e} (tol {LOOP_GRAD_TOL} of it); {launches} K1 launch")
+    if launches != 1 or kernel.keys() != plain.keys() or not err <= LOOP_GRAD_TOL * scale:
+        raise AssertionError(f"K1 in the loop ({label}): {launches} launches, gradient gap {err} of {scale}")
+
+
+def phase_collision_modes(dev, smi):
+    """Phase 13: every in-loop collision path at full width."""
+    from ihmr_tpu_torch.data import make_opt_inputs
+    from ihmr_tpu_torch.mano import synthetic_mano_model
+    from ihmr_tpu_torch.refine import OptConfig
+    from ihmr_tpu_torch.refine import opt_engine as TE
+
+    log(f"in-loop collision paths: opt_default with every stage cut to epoch {COLLISION_EPOCH} "
+        f"({COLLISION_EPOCH + 1} of 301 steps), save_mid_freq=10, B={COLLISION_BATCH}, full MANO mesh, on {smi}")
+    mano = synthetic_mano_model(device=dev)
+    counts = {}
+    for variant in ("interlocked", "standard"):
+        counts[f"coll_escalation_{variant}"], _ = _escalation(mano, variant, smi)
+
+    params, batch = make_opt_inputs(mano, batch=COLLISION_BATCH, seed=0)
+    grid = OptConfig(save_mid_freq=10, loop_collision_fast=False, collision_backend="grid")
+    builds, build_grids = [], TE.pair_grids
+
+    def timed_build(*args, **kwargs):  # the payload rebuilds' share of the run
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = build_grids(*args, **kwargs)
+        torch.cuda.synchronize()
+        builds.append(time.perf_counter() - t0)
+        return out
+
+    TE.pair_grids = timed_build
+    try:
+        _, _, counts["coll_grid"], _, _ = _opt_run(
+            mano, params, batch, grid, smi, "grid in the loop (res 32, K=8, full faces: JAX's default knobs)")
+    finally:
+        TE.pair_grids = build_grids
+    log(f"    {len(builds)} grid builds (both hands of {COLLISION_BATCH} samples each): {sum(builds):.3f}s in all, "
+        f"{min(builds):.3f}-{max(builds):.3f}s each")
+    check_counts("grid in the loop", counts["coll_grid"], exact_collision=1, nearest_centroid=0, bn_stats=0)
+
+    configs = dict(default=OptConfig(save_mid_freq=10), eager=OptConfig(save_mid_freq=10, loop_collision_lazy_reselect=False),
+                   tracked=OptConfig(save_mid_freq=10, loop_collision_freeze_positions=False))
+    rates = {name: [] for name in configs}
+    for name in ("default", "eager", "tracked", "tracked", "eager", "default"):  # in turns
+        _, _, c, rate, _ = _opt_run(mano, params, batch, configs[name], smi, f"{name} (in turns)")
+        check_counts(name, c, exact_collision=1, nearest_centroid=0, bn_stats=0)
+        rates[name].append(rate)
+        counts[f"coll_{name}"] = c
+    log("  in turns, hands/sec: " + ", ".join(f"{n} {r[0]:.3f} / {r[1]:.3f}" for n, r in rates.items())
+        + f" (on {smi})")
+    del counts["coll_default"]
+
+    exact = OptConfig(save_mid_freq=10, loop_collision_fast=False, loop_collision_subsample=1)
+    _k1_loop_checks(mano, params, batch, exact, "the run's initial params")
+    out, _, counts["coll_k1_loop"], _, _ = _opt_run(mano, params, batch, exact, smi, "K1 in the loop (stride 1)")
+    _k1_loop_checks(mano, out, batch, exact, "the run's refined params")
+    steps = 4 * (COLLISION_EPOCH + 1)
+    check_counts("K1 in the loop", counts["coll_k1_loop"], exact_collision=steps + 1, nearest_centroid=0,
+                 bn_stats=0)
+    log(f"    K1 launched {counts['coll_k1_loop']['exact_collision']} times: {steps} gradient steps + the final pass")
+    return counts
+
+
+def phase_small_collision(dev, smi):
+    """The in-loop collision paths at small size, card against CPU."""
+    from ihmr_tpu_torch.pipeline import SHORT_COLLISION_TOL, run_short_collision_paths, short_collision_gaps
+
+    gaps, ok = short_collision_gaps(run_short_collision_paths(dev), run_short_collision_paths("cpu"))
+    log("collision paths at small size (B=4, interlocked seed 2), card vs CPU (params max |gap|, collision max "
+        "relative gap): " + ", ".join(f"{k} {p:.3e} / {c:.3e}" for k, (p, c) in gaps.items())
+        + f" (tol {SHORT_COLLISION_TOL}; escalation masks equal: required; on {smi})")
+    if not ok:
+        raise AssertionError("the card and the CPU disagree on an in-loop collision path")
+
+
+def phase_cli_collision(dev, smi):
+    """optimize through the CLI with --escalate_collision and with the grid, on
+    a corpus of 16 files (write_corpus seed 2), B=8, stages cut to epoch 20."""
+    from ihmr_tpu_torch.data.synthetic import write_corpus
+
+    counts = {}
+    with tempfile.TemporaryDirectory() as work:
+        write_corpus(os.path.join(work, "corpus"), 16, seed=2)
+        argv = ["optimize", "--data_root", os.path.join(work, "corpus"), "--anno_path", "anno.pkl", "--pred_path",
+                "pred.pkl", "--batchSize", "8", "--synthetic_mano", "--stage_epochs", "20", "--device", "cuda"]
+        cwd = os.getcwd()
+        os.chdir(work)
+        try:
+            for name, flags in (("cli_escalate", ["--escalate_collision", str(ESCALATE_THRESHOLD)]),
+                                ("cli_grid", ["--loop_collision_backend", "grid"])):
+                out, counts[name], seconds = _cli(argv + flags)
+                md = out["metrics"]
+                log(f"  optimize {' '.join(flags)}: {seconds:.2f}s, launches {counts[name]}, metric_dict "
+                    + json.dumps(md) + f" (on {smi})")
+                if not md or not all(math.isfinite(v) for v in md.values()):
+                    raise AssertionError(f"optimize {flags}: metrics {md}")
+        finally:
+            os.chdir(cwd)
+    # 2 batches: K1 once a batch and pass, so 2 to 4 with escalation
+    if not 2 <= counts["cli_escalate"]["exact_collision"] <= 4 or counts["cli_grid"]["exact_collision"] != 2:
+        raise AssertionError(f"command-line K1 launches {counts}")
+    return counts
+
+
 TRACK_STREAMS, TRACK_FRAMES, TRACK_STEPS = 64, 8, 30  # scripts/tracker_study.py's S; 4 x 31 steps a frame
 
 
@@ -1397,12 +1652,15 @@ def main():
         serve = phase_serve(dev, ckpt_dir)
     tracker_counts, _tracked_per_sec = phase_tracker(dev)
     train_bf16 = phase_train_bf16(dev, train["ms_per_step"])
+    collision_counts = phase_collision_modes(dev, smi)
+    collision_counts.update(phase_cli_collision(dev, smi))
     phase_cli_small(dev)
     phase_small_input(dev)
     phase_small_eval(dev)
     phase_small_mlp(dev)
     phase_small_train(dev)
     phase_small_serve_track(dev)
+    phase_small_collision(dev, smi)
 
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all, kernel builds included, on {smi}")
     print(smi, flush=True)
@@ -1413,13 +1671,15 @@ def main():
     # test_baseline_loop; cli_*: each command of the command line, cli_jpeg_*
     # the two on JPEG files with every augmentation; serve, serve_bf16: each
     # server from its start to its last response; tracker: the 8 timed
-    # frames; train_bf16: the 20 bf16 train steps). K1's and
+    # frames; train_bf16: the 20 bf16 train steps; coll_*: each run of phase
+    # 13, cli_escalate / cli_grid its two commands). K1's and
     # K2's times are one launch at the main path's shape; K3's are the sum
     # over the 53 launches of one train step ("ms_basis"), fp32 and (the
     # "_bf16" keys) bf16. "ms" is device time alone.
     by_path = dict(opt=opt_counts, opt_eval=opt_eval_counts, mlp=mlp_counts, train=train["counts"],
                    baseline_eval=train["loop_counts"], **cli_counts, serve=serve[False]["counts"],
-                   serve_bf16=serve[True]["counts"], tracker=tracker_counts, train_bf16=train_bf16["counts"])
+                   serve_bf16=serve[True]["counts"], tracker=tracker_counts, train_bf16=train_bf16["counts"],
+                   **collision_counts)
     k3_bf16 = {f"{key}_bf16": v for key, v in train_bf16["k3_step"].items()}
     kernels = [
         dict(name="exact_collision", source="ihmr_tpu_torch/csrc/exact_collision.cu",

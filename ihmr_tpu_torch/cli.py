@@ -50,7 +50,6 @@ import numpy as np
 
 # what each refused subcommand or flag waits for: its ROADMAP.md item
 _ROADMAP = {
-    "collision": "ROADMAP.md Queue 1, item 1 (the other in-loop collision paths)",
     "utils": "ROADMAP.md Queue 1, item 2 (utils/: rendering, the visualizer and the live monitor)",
     "multicard": "ROADMAP.md Queue 1, the slice with more than one card (parallel/, --rank/--world_size)",
 }
@@ -68,13 +67,6 @@ def _check_flags(args) -> None:
         _refuse("--display_freq > 0 / --live_port >= 0", "utils")
     if getattr(args, "visualize_eval", False):
         _refuse("--visualize_eval", "utils")
-    if getattr(args, "loop_collision_backend", "fast") == "grid":
-        _refuse("--loop_collision_backend grid", "collision")
-    if getattr(args, "escalate_collision", 0.0) > 0:
-        _refuse("--escalate_collision > 0", "collision")
-    for flag in ("loop_collision_eager_reselect", "loop_collision_track_positions"):
-        if getattr(args, flag, False):
-            _refuse(f"--{flag}", "collision")
 
 
 def _add_common(p: argparse.ArgumentParser):
@@ -268,9 +260,28 @@ def cmd_test_baseline(args):
     return _summary(seconds, loader.data_seconds, evaluator=evaluator, metrics=dict(evaluator.metric_dict()))
 
 
+def optimize_config(args):
+    """The ``optimize`` command's OptConfig, built from its flags as the JAX
+    CLI builds it."""
+    from ihmr_tpu_torch.refine import OptConfig
+
+    grid = args.loop_collision_backend == "grid"
+    return OptConfig(
+        optimizer=args.optimizer,
+        save_mid_freq=args.save_mid_freq,
+        loop_collision_subsample=args.loop_collision_subsample,
+        loop_collision_face_subsample=args.loop_collision_face_subsample,
+        loop_collision_lazy_reselect=not args.loop_collision_eager_reselect,
+        loop_collision_freeze_positions=not args.loop_collision_track_positions,
+        loop_collision_fast=not grid,
+        collision_backend="grid" if grid else "auto",
+        stage_hoist_decode=not args.no_stage_hoist,
+        escalate_collision=args.escalate_collision,
+    )
+
+
 def cmd_optimize(args):
     from ihmr_tpu_torch.data import BatchLoader, OPTDataset
-    from ihmr_tpu_torch.refine import OptConfig
     from ihmr_tpu_torch.train.loops import BatchAdapter, optimize_loop, print_metrics
 
     dev = _device(args)
@@ -278,13 +289,7 @@ def cmd_optimize(args):
     dataset.load_data()
     loader = BatchAdapter(BatchLoader(dataset, args.batchSize, rank=args.rank, world_size=args.world_size))
     mano_right, mano_left = _load_mano(args, dev)
-    config = OptConfig(
-        optimizer=args.optimizer,
-        save_mid_freq=args.save_mid_freq,
-        loop_collision_subsample=args.loop_collision_subsample,
-        loop_collision_face_subsample=args.loop_collision_face_subsample,
-        stage_hoist_decode=not args.no_stage_hoist,
-    )
+    config = optimize_config(args)
     t0 = time.perf_counter()
     evaluator = optimize_loop(
         mano_right, loader, dataset, _strategy(args), config,
@@ -469,13 +474,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="in-loop collision query-vertex stride (1 = every vertex)")
     p.add_argument("--loop_collision_face_subsample", type=int, default=2,
                    help="in-loop collision target-face stride over the Morton-sorted faces")
-    p.add_argument("--loop_collision_eager_reselect", action="store_true", help="not ported yet (raises)")
-    p.add_argument("--loop_collision_track_positions", action="store_true", help="not ported yet (raises)")
+    p.add_argument("--loop_collision_eager_reselect", action="store_true",
+                   help="recompute the nearest-face selection every step instead of once per snapshot period")
+    p.add_argument("--loop_collision_track_positions", action="store_true",
+                   help="take the selected triangles' positions every step instead of freezing them per block")
     p.add_argument("--no_stage_hoist", action="store_true",
                    help="the full decode every step instead of the stage-hoisted engine")
-    p.add_argument("--escalate_collision", type=float, default=0.0, help="not ported yet (raises when > 0)")
+    p.add_argument("--escalate_collision", type=float, default=0.0,
+                   help="two-pass grid escalation threshold: samples whose final exact collision exceeds it "
+                        "re-refine with the grid in the loop and keep that result where it lowered their "
+                        "exact collision (0 = off)")
     p.add_argument("--loop_collision_backend", choices=["fast", "grid"], default="fast",
-                   help="'fast' = nearest-face (the default); 'grid' is not ported yet (raises)")
+                   help="'fast' = nearest-face (the default); 'grid' = the reference's 32^3 penetration "
+                        "grid, sampled trilinearly")
     p.add_argument("--obj_dump_dir", default=None,
                    help="dump each batch's first refined sample as .obj here")
     p.add_argument("--export_pseudo_gt", default="",

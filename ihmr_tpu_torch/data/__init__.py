@@ -9,9 +9,12 @@ from ihmr_tpu_torch.data.datasets import (
 )
 from ihmr_tpu_torch.data.loader import BatchLoader, collate
 from ihmr_tpu_torch.data.synthetic import (
+    VARIANTS,
     BatchList,
     baseline_raw_batch,
     generate,
+    generate_grazing,
+    generate_interlocked,
     make_baseline_batch,
     make_mlp_inputs,
     make_opt_inputs,
@@ -26,9 +29,12 @@ __all__ = [
     "DataConfig",
     "MLPDataset",
     "OPTDataset",
+    "VARIANTS",
     "baseline_raw_batch",
     "collate",
     "generate",
+    "generate_grazing",
+    "generate_interlocked",
     "load_anno_pred_data",
     "load_annotation",
     "make_baseline_batch",

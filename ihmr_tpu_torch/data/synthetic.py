@@ -1,5 +1,4 @@
-"""Synthetic two-hand OPT inputs (port of the ``standard`` variant of
-ihmr_tpu/data/synthetic.py).
+"""Synthetic two-hand OPT inputs (port of ihmr_tpu/data/synthetic.py).
 
 Ground-truth parameters are drawn with ``np.random.RandomState(seed)`` in the
 same order and the same float32 arithmetic as the JAX package, decoded
@@ -9,6 +8,12 @@ one seed (up to the decode's rounding). The init joints play the reference's
 separate keypoint model: gt joints plus a small independent jitter (they
 must differ from decode(init params), or the self-consistency losses start
 at zero and no snapshot is ever accepted).
+
+``make_opt_inputs(variant=...)`` selects the benchmark family: ``standard``
+(broad shallow contact), ``interlocked`` (``generate_interlocked``: facing,
+curled hands with sparse deep finger interlocks), ``grazing``
+(``generate_grazing``: the same poses a hair apart) and ``single`` (the
+standard draws with one valid hand, so the collision loss is masked to 0).
 
 ``make_mlp_inputs`` builds the IHMR-MLP batch from the same draws plus a
 seeded stand-in for the cached 1024-d image feature; ``make_baseline_batch``
@@ -22,8 +27,6 @@ read (PNG images, an annotation pkl and a prediction pkl);
 ``use_jpeg_images`` points such a corpus at JPEG files of the same shapes;
 ``write_blur_kernels`` writes two motion-blur point-spread functions
 (``motion_psf``) as the ``.mat`` files ``--blur_kernel_dir`` reads.
-
-Not ported yet: the interlocked, grazing and single-hand variants.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import os.path as osp
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -55,7 +58,6 @@ def decode_gt(model: ManoModel, pose, shape, trans, cam):
 
 def generate(model: ManoModel, batch: int, seed: int, noise: float) -> Dict[str, torch.Tensor]:
     """GT params + noisy init predictions, decoded on ``model``'s device."""
-    dev = model.device
     f32 = np.float32
     rng = np.random.RandomState(seed)
     gt_pose = (rng.randn(batch, 96) * 0.2).astype(f32)
@@ -63,40 +65,111 @@ def generate(model: ManoModel, batch: int, seed: int, noise: float) -> Dict[str,
     cam = np.tile(np.array([[5.0, 0.0, 0.0]], f32), (batch, 1))
     cam[:, 1:] += rng.randn(batch, 2).astype(f32) * f32(0.02)
     gt_trans = (rng.randn(batch, 3) * 0.02).astype(f32)
+    return _noisy_init(model, rng, gt_pose, gt_shape, gt_trans, cam, noise)
+
+
+def _noisy_init(model: ManoModel, rng: np.random.RandomState, pose, shape, trans, cam, noise: float):
+    """GT draws (numpy fp32) -> ``generate``'s dict: decode the GT, then the
+    noisy init params and keypoints from ``rng``, in the JAX package's order."""
+    dev = model.device
+    f32 = np.float32
 
     def t(x):
         return torch.as_tensor(x, device=dev)
 
-    _, _, gt_j3, gt_j2 = decode_gt(model, t(gt_pose), t(gt_shape), t(gt_trans), t(cam))
-
-    init_pose = gt_pose + rng.randn(batch, 96).astype(f32) * f32(noise)
-    init_shape = gt_shape + rng.randn(batch, 20).astype(f32) * f32(noise)
-    init_trans = gt_trans + rng.randn(batch, 3).astype(f32) * f32(noise) * f32(0.2)
+    _, _, gt_j3, gt_j2 = decode_gt(model, t(pose), t(shape), t(trans), t(cam))
+    init_pose = pose + rng.randn(*pose.shape).astype(f32) * f32(noise)
+    init_shape = shape + rng.randn(*shape.shape).astype(f32) * f32(noise)
+    init_trans = trans + rng.randn(*trans.shape).astype(f32) * f32(noise) * f32(0.2)
     kp_noise = f32(noise * 0.02)
     init_j3 = gt_j3 + t(rng.randn(*gt_j3.shape).astype(f32) * kp_noise)
     init_j2 = gt_j2 + t(rng.randn(*gt_j2.shape).astype(f32) * kp_noise)
     return dict(
-        gt_pose=t(gt_pose),
-        gt_shape=t(gt_shape),
-        gt_cam=t(cam),
-        gt_trans=t(gt_trans),
-        gt_j3=gt_j3,
-        gt_j2=gt_j2,
-        init_pose=t(init_pose),
-        init_shape=t(init_shape),
-        init_cam=t(cam),
-        init_trans=t(init_trans),
-        init_j3=init_j3,
-        init_j2=init_j2,
+        gt_pose=t(pose), gt_shape=t(shape), gt_cam=t(cam), gt_trans=t(trans), gt_j3=gt_j3, gt_j2=gt_j2,
+        init_pose=t(init_pose), init_shape=t(init_shape), init_cam=t(cam), init_trans=t(init_trans),
+        init_j3=init_j3, init_j2=init_j2,
     )
 
 
+def _facing_curled(rng: np.random.RandomState, batch: int):
+    """The interlocked and grazing families' GT pose, shape and camera draws:
+    every finger joint of both hands curled by one per-sample amount plus
+    jitter, the left hand turned ~pi about y to face the right one."""
+    f32 = np.float32
+    pose = np.zeros((batch, 96), f32)
+    curl = rng.uniform(0.5, 1.1, size=(batch, 1)).astype(f32)
+    for f in range(5):
+        for k in range(3):
+            base = 3 + (f * 3 + k) * 3
+            pose[:, base + 2] = curl[:, 0] + rng.randn(batch).astype(f32) * 0.1  # right finger curl
+            pose[:, 48 + base + 2] = curl[:, 0] + rng.randn(batch).astype(f32) * 0.1
+    pose[:, 49] = np.pi + rng.randn(batch).astype(f32) * 0.15
+    pose += rng.randn(batch, 96).astype(f32) * 0.05
+    shape = (rng.randn(batch, 20) * 0.3).astype(f32)
+    cam = np.tile(np.array([[5.0, 0.0, 0.0]], f32), (batch, 1))
+    cam[:, 1:] += rng.randn(batch, 2).astype(f32) * 0.02
+    return pose, shape, cam
+
+
+def generate_interlocked(model: ManoModel, batch: int, seed: int, noise: float) -> Dict[str, torch.Tensor]:
+    """Hard cases: the hands face each other with curled fingers, the wrists
+    0.08-0.15 apart in x so fingertips drive into the other palm. Few
+    vertices penetrate (~0.5-2%) but deep (up to ~0.14): sparse deep
+    contacts, the adversarial case for in-loop subsampling and the family
+    escalation is measured on."""
+    rng = np.random.RandomState(seed)
+    pose, shape, cam = _facing_curled(rng, batch)
+    trans = np.zeros((batch, 3), np.float32)
+    trans[:, 0] = rng.uniform(0.08, 0.15, size=batch)  # wrist offset -> overlap
+    trans[:, 1:] = rng.randn(batch, 2).astype(np.float32) * 0.015
+    return _noisy_init(model, rng, pose, shape, trans, cam, noise)
+
+
+def generate_grazing(model: ManoModel, batch: int, seed: int, noise: float) -> Dict[str, torch.Tensor]:
+    """Grazing contact: the interlocked family's poses with the left hand
+    pushed +x until its AABB just clears the right hand's, minus a
+    per-sample band of -2 to +6 mm in mesh units (decoded once at trans=0;
+    trans enters the left hand additively). GT penetration is ~0, so any
+    in-loop collision pressure can only push the hands apart."""
+    rng = np.random.RandomState(seed)
+    pose, shape, cam = _facing_curled(rng, batch)
+    dev = model.device
+    rv0, lv0, _, _ = decode_gt(
+        model, torch.as_tensor(pose, device=dev), torch.as_tensor(shape, device=dev),
+        torch.zeros((batch, 3), device=dev), torch.as_tensor(cam, device=dev),
+    )
+    gap = rng.uniform(-0.002, 0.006, size=batch).astype(np.float32)
+    tx = rv0[:, :, 0].amax(dim=1).cpu().numpy() - lv0[:, :, 0].amin(dim=1).cpu().numpy() + gap
+    trans = np.zeros((batch, 3), np.float32)
+    trans[:, 0] = tx
+    trans[:, 1:] = rng.randn(batch, 2).astype(np.float32) * 0.005
+    return _noisy_init(model, rng, pose, shape, trans, cam, noise)
+
+
+VARIANTS = ("standard", "interlocked", "grazing", "single")
+
+
 def make_opt_inputs(
-    model: ManoModel, batch: int = 8, seed: int = 0, noise: float = 0.15
+    model: ManoModel,
+    batch: int = 8,
+    seed: int = 0,
+    noise: float = 0.15,
+    interlocked: bool = False,
+    variant: Optional[str] = None,
 ) -> Tuple[ParamDict, OptBatch]:
-    """(initial params, OptBatch) of the ``standard`` benchmark family (broad
-    shallow contact, both hands valid), on ``model``'s device."""
-    return opt_inputs(generate(model, batch, seed, noise))
+    """(initial params, OptBatch) of one benchmark family, on ``model``'s
+    device: ``variant`` one of ``VARIANTS`` (``interlocked=True`` is the
+    older spelling of ``variant="interlocked"``). ``single`` takes the
+    standard draws with hand types [1, 0]."""
+    if variant is None:
+        variant = "interlocked" if interlocked else "standard"
+    gen = {"standard": generate, "single": generate, "interlocked": generate_interlocked, "grazing": generate_grazing}
+    params, opt_batch = opt_inputs(gen[variant](model, batch, seed, noise))
+    if variant == "single":
+        hand_type = torch.zeros_like(opt_batch.hand_type_array)
+        hand_type[:, 0] = 1.0
+        opt_batch = dataclasses.replace(opt_batch, hand_type_array=hand_type)
+    return params, opt_batch
 
 
 def opt_inputs(d: Dict[str, torch.Tensor]) -> Tuple[ParamDict, OptBatch]:

@@ -16,6 +16,7 @@ The main paths' own inputs at full width are here too, for timing:
 
     exact_main_inputs(device)    K1 on the OPT path's final pass, B=128 hands
     nearest_main_inputs(device)  K2 on an MLP train step, B=128 hands
+    hand_pair(mano, rv, lv, s)   K1's inputs for two hands' vertices, faces strided by s
     RESNET50_BN                  K3's inputs in a ResNet-50 training step
 """
 
@@ -38,11 +39,13 @@ RESNET50_BN = {
 }
 
 
-def _hand_pair(mano, rv, lv):
+def hand_pair(mano, rv, lv, face_subsample: int = 1):
     """(query (2B, V, 3), triangles (2B, F, 9)): right vertices into the left
-    mesh, then left vertices into the right mesh, as pair_depths_exact."""
+    mesh, then left vertices into the right mesh, as pair_depths_exact, on
+    every ``face_subsample``-th face (the OPT loop's
+    ``loop_collision_face_subsample``)."""
     B = rv.shape[0]
-    faces_r, faces_l = mano.faces, mano.faces.flip(-1)
+    faces_r, faces_l = mano.faces[::face_subsample], mano.faces.flip(-1)[::face_subsample]
     q = torch.cat([rv, lv]).contiguous()
     tri = torch.cat([lv[:, faces_l].reshape(B, -1, 9), rv[:, faces_r].reshape(B, -1, 9)]).contiguous()
     return q, tri
@@ -59,7 +62,7 @@ def exact_main_inputs(device, batch: int = 128, seed: int = 0):
     params, _ = make_opt_inputs(mano, batch=batch, seed=seed)
     with torch.no_grad():
         rv, lv, _, _ = forward(mano, params)
-    return _hand_pair(mano, rv, lv)
+    return hand_pair(mano, rv, lv)
 
 
 def nearest_main_inputs(device, batch: int = 128, seed: int = 100):
@@ -75,7 +78,7 @@ def nearest_main_inputs(device, batch: int = 128, seed: int = 100):
     batch_ = make_mlp_inputs(mano, batch=batch, seed=seed)
     with torch.no_grad():
         rv, lv, _, _ = forward(mano, seed_from_backbone(batch_))
-    q, tri = _hand_pair(mano, rv, lv)
+    q, tri = hand_pair(mano, rv, lv)
     return q, _centroids(tri.reshape(tri.shape[0], -1, 3, 3)).contiguous()
 
 

@@ -1,10 +1,15 @@
-"""Interpenetration loss between two hand meshes (port of the OPT main-path
-subset of ihmr_tpu/ops/collision.py).
+"""Interpenetration loss between two hand meshes (port of
+ihmr_tpu/ops/collision.py, all backends but the 2-level hierarchy).
 
   * in the refinement loop: nearest-centroid face selection
-    (``nearest_face_indices`` / ``pair_indices``, the JAX package's bf16 rank),
-    block-frozen triangle positions (``pair_tris_at``) and the exact depth
-    against those single triangles (``pair_depths_at_tris``);
+    (``nearest_face_indices`` / ``pair_indices``, the JAX package's bf16 rank)
+    and the exact depth against the selected triangles, either at the current
+    positions (``pair_depths_at``) or at block-frozen ones (``pair_tris_at``
+    then ``pair_depths_at_tris``);
+  * the K-candidate depth (``penetration_depth``, the ``"xla"`` backend):
+    the K nearest centroids by the same rank, each refined exactly, with the
+    tie-set pseudonormal inside test; K=1 takes the argmin face alone;
+  * the reference's grid field (``"grid"``, ops/grid_sdf.py);
   * the final metric: ``collision_loss`` with the exact kernel
     (ops/exact_collision.py, the port of the TPU kernel K1), ANDed with the
     ray-parity inside test (``ray_parity_inside``);
@@ -15,7 +20,8 @@ subset of ihmr_tpu/ops/collision.py).
 
 Outputs follow the reference triple: (batch-mean loss, per-sample loss (B,),
 per-vertex origin-scale depths (B, 2*Vq)), vertex order [right | left].
-Not ported yet: the K-candidate XLA backend, the 2-level and grid backends.
+Not ported: the 2-level hierarchy (``loop_collision_cluster``) and the merged
+payload builder ``pair_select_tris`` (an environment switch of the JAX engine).
 """
 
 from __future__ import annotations
@@ -28,6 +34,9 @@ from ihmr_tpu_torch.ops.exact_collision import pair_depths_exact
 from ihmr_tpu_torch.ops.nearest_centroid import nearest_centroid
 
 _EPS = 1e-12
+# relative squared-distance tolerance of the pseudonormal tie set (the
+# K-candidate depth and the exact kernel)
+_TIE_REL = 1e-3
 
 
 def point_triangle_closest(p: torch.Tensor, tri: torch.Tensor) -> torch.Tensor:
@@ -100,26 +109,113 @@ def _centroids(tri: torch.Tensor) -> torch.Tensor:
     return ((tri[..., 0, :] + tri[..., 1, :]) + tri[..., 2, :]) * (1.0 / 3.0)
 
 
+def _centroid_rank(query: torch.Tensor, tri: torch.Tensor) -> torch.Tensor:
+    """(B, V, F) rank |c|^2 - 2 q.c of every query against every centroid of
+    the (B, F, 3, 3) triangles, with the arithmetic the JAX package's jitted
+    bf16 rank compiles to: centroids as (a + b + c) * fp32(1/3), operands
+    rounded to bf16, products and sums in fp32, and |c|^2, q.c and the rank
+    each rounded to bf16 (XLA keeps the products and sums inside its fusions
+    in fp32; rounding after every op, as eager JAX does, picks another face
+    for ~3% of queries). No gradient."""
+    cb = _bf16(_centroids(tri.detach()))  # (B, F, 3)
+    qb = _bf16(query.detach())
+    c2 = _bf16((cb[..., 0] * cb[..., 0] + cb[..., 1] * cb[..., 1]) + cb[..., 2] * cb[..., 2])
+    q, c = qb[:, :, None, :], cb[:, None, :, :]
+    qc = _bf16((q[..., 0] * c[..., 0] + q[..., 1] * c[..., 1]) + q[..., 2] * c[..., 2])  # (B, V, F)
+    return _bf16(c2[:, None, :] - 2.0 * qc)
+
+
+def _min_k_indices(rank: torch.Tensor, k: int) -> torch.Tensor:
+    """(..., F) bf16-valued fp32 rank -> (..., k) indices of the k smallest,
+    ascending, equal ranks taken lowest index first. The key packs the
+    rank's order-preserving integer image above the index, so every key is
+    distinct and ``topk`` has one answer on any device. (JAX's
+    ``approx_min_k`` returns the same k values; under ties its CPU fallback
+    sort may keep other indices.)"""
+    bits = rank.contiguous().view(torch.int32)
+    ordered = (bits ^ ((bits >> 31) & 0x7FFFFFFF)).long()  # monotone in the float value
+    key = ordered * rank.shape[-1] + torch.arange(rank.shape[-1], device=rank.device)
+    return torch.topk(key, k, dim=-1, largest=False, sorted=True).indices
+
+
 def nearest_face_indices(
     query: torch.Tensor,  # (B, V, 3)
     mesh_verts: torch.Tensor,  # (B, Vm, 3)
     faces: torch.Tensor,  # (F, 3)
 ) -> torch.Tensor:
-    """(B, V) nearest-centroid face index by the rank |c|^2 - 2 q.c, with the
-    arithmetic the JAX package's jitted bf16 rank compiles to: centroids as
-    (a + b + c) * fp32(1/3), operands rounded to bf16, products and sums in
-    fp32, and |c|^2, q.c and the rank each rounded to bf16 (XLA keeps the
-    products and sums inside its fusions in fp32; rounding after every op,
-    as eager JAX does, picks another face for ~3% of queries). Ties go to
-    the first index. Selection only, no gradient."""
+    """(B, V) nearest-centroid face index by the bf16 rank of
+    ``_centroid_rank``; ties go to the first index. Selection only, no
+    gradient."""
+    return _centroid_rank(query, mesh_verts.detach()[:, faces]).argmin(dim=-1)
+
+
+def penetration_depth(
+    query: torch.Tensor,  # (B, V, 3)
+    mesh_verts: torch.Tensor,  # (B, Vm, 3)
+    faces: torch.Tensor,  # (F, 3), outward winding
+    num_candidates: int = 8,
+    margin: float = 0.0,
+) -> torch.Tensor:
+    """(B, V) penetration depth of each query into the other hand's closed
+    mesh: 0 outside, or the outward shell of ``_shell_depth`` when
+    ``margin`` > 0. The mesh side is detached, the query side differentiable.
+
+    The ``num_candidates`` nearest centroids by the bf16 rank are refined
+    exactly (point-triangle distance). K=1 takes the argmin face and its
+    normal's sign. K>1 takes the least distance over the candidates and the
+    pseudonormal test over the TIE SET, the candidates within a relative
+    ``_TIE_REL`` of the least squared distance: at a silhouette edge or
+    vertex both adjacent faces tie and a single face's normal would give the
+    wrong sign."""
     tri = mesh_verts.detach()[:, faces]  # (B, F, 3, 3)
-    cb = _bf16(_centroids(tri))  # (B, F, 3)
-    qb = _bf16(query.detach())
-    c2 = _bf16((cb[..., 0] * cb[..., 0] + cb[..., 1] * cb[..., 1]) + cb[..., 2] * cb[..., 2])
-    q, c = qb[:, :, None, :], cb[:, None, :, :]
-    qc = _bf16((q[..., 0] * c[..., 0] + q[..., 1] * c[..., 1]) + q[..., 2] * c[..., 2])  # (B, V, F)
-    rank = _bf16(c2[:, None, :] - 2.0 * qc)
-    return rank.argmin(dim=-1)
+    rank = _centroid_rank(query, tri)
+    if num_candidates == 1:
+        idx = rank.argmin(dim=-1)  # (B, V)
+        tri_best = torch.gather(tri, 1, idx[..., None, None].expand(-1, -1, 3, 3))
+        return _depth_at_tris_single(query, tri_best, margin)
+    idx = _min_k_indices(rank, num_candidates)  # (B, V, K)
+    B, V, K = idx.shape
+    tri_k = torch.gather(tri, 1, idx.reshape(B, V * K)[..., None, None].expand(-1, -1, 3, 3))
+    return _depth_over_candidates(query, tri_k.reshape(B, V, K, 3, 3), margin)
+
+
+def _depth_over_candidates(query: torch.Tensor, tri_k: torch.Tensor, margin: float = 0.0) -> torch.Tensor:
+    """(B, V, 3) queries, (B, V, K, 3, 3) candidate triangles -> (B, V): the
+    least exact distance over the candidates, signed by the tie-set
+    pseudonormal test."""
+    q = query[:, :, None, :]
+    closest = point_triangle_closest(q, tri_k)  # (B, V, K, 3)
+    diff = q - closest
+    dist2 = (diff * diff).sum(-1)  # (B, V, K)
+    d2_best = dist2.amin(dim=-1)  # ties share the gradient, as jnp.min's
+    dist = torch.sqrt(torch.maximum(d2_best, torch.full_like(d2_best, _EPS)))
+    normal_k = torch.linalg.cross(tri_k[..., 1, :] - tri_k[..., 0, :], tri_k[..., 2, :] - tri_k[..., 0, :])
+    dot_k = (diff * normal_k).sum(-1)
+    tie = dist2 <= d2_best[..., None] * (1.0 + _TIE_REL) + _EPS
+    inside = torch.where(tie, dot_k, torch.zeros_like(dot_k)).sum(-1) < 0
+    return _shell_depth(dist, inside, margin)
+
+
+def _pair_depths(
+    right_verts: torch.Tensor,  # (B, 778, 3)
+    left_verts: torch.Tensor,  # (B, 778, 3)
+    faces_right: torch.Tensor,
+    faces_left: torch.Tensor,
+    num_candidates: int,
+    query_subsample: int = 1,
+    margin: float = 0.0,
+) -> torch.Tensor:
+    """(B, 2*Vq) K-candidate depths: right verts into the left mesh, then left
+    verts into the right mesh. ``query_subsample`` strides the queries only;
+    the mesh side stays the full vertex array the faces index."""
+    s = query_subsample
+    return torch.cat(
+        [
+            penetration_depth(right_verts[:, ::s], left_verts, faces_left, num_candidates, margin),
+            penetration_depth(left_verts[:, ::s], right_verts, faces_right, num_candidates, margin),
+        ],
+        dim=1,
+    )
 
 
 def pair_indices(query_r, query_l, mesh_r, mesh_l, faces_right, faces_left):
@@ -141,6 +237,34 @@ def pair_tris_at(mesh_r, mesh_l, faces_right, faces_left, idx_r, idx_l):
         return sel.reshape(idx.shape[0], idx.shape[1], 3, 3)
 
     return build(mesh_l, faces_left, idx_r), build(mesh_r, faces_right, idx_l)
+
+
+def penetration_depth_at(
+    query: torch.Tensor,  # (B, V, 3)
+    mesh_verts: torch.Tensor,  # (B, Vm, 3)
+    faces: torch.Tensor,  # (F, 3)
+    idx: torch.Tensor,  # (B, V) face index per query
+    margin: float = 0.0,
+) -> torch.Tensor:
+    """(B, V) depth against the GIVEN face per query at the mesh's current
+    positions: the K=1 refinement with the selection factored out, so a
+    selection can be reused over steps while the faces track the mesh. The
+    mesh side is detached."""
+    tri = mesh_verts.detach()[:, faces]  # (B, F, 3, 3)
+    tri_best = torch.gather(tri, 1, idx[..., None, None].expand(-1, -1, 3, 3))
+    return _depth_at_tris_single(query, tri_best, margin)
+
+
+def pair_depths_at(query_r, query_l, mesh_r, mesh_l, faces_right, faces_left, idx_r, idx_l, margin: float = 0.0):
+    """(B, 2*Vq) depths at given face selections, both directions: right
+    queries against the FULL left mesh and vice versa."""
+    return torch.cat(
+        [
+            penetration_depth_at(query_r, mesh_l, faces_left, idx_r, margin),
+            penetration_depth_at(query_l, mesh_r, faces_right, idx_l, margin),
+        ],
+        dim=1,
+    )
 
 
 def _depth_at_tris_single(query: torch.Tensor, tri_best: torch.Tensor, margin: float = 0.0):
@@ -167,17 +291,18 @@ def pair_depths_fast(
     left_verts: torch.Tensor,  # (B, V, 3)
     faces_right: torch.Tensor,  # (F, 3)
     faces_left: torch.Tensor,  # (F, 3)
+    query_subsample: int = 1,
 ) -> torch.Tensor:
-    """(B, 2V) single-candidate depths (``_pair_depths_fast`` of the JAX
-    package): every query's nearest-centroid triangle of the other hand, both
-    directions in ONE launch of the nearest-centroid kernel (N = 2B), then the
-    exact depth against that triangle. Differentiable in the queries only;
-    the mesh side is detached."""
-    B = right_verts.shape[0]
+    """(B, 2Vq) single-candidate depths (``_pair_depths_fast`` of the JAX
+    package): every ``query_subsample``-th query's nearest-centroid triangle
+    of the other hand, both directions in ONE launch of the nearest-centroid
+    kernel (N = 2B), then the exact depth against that triangle.
+    Differentiable in the queries only; the mesh side is detached."""
+    B, s = right_verts.shape[0], query_subsample
     tri = torch.cat([left_verts.detach()[:, faces_left], right_verts.detach()[:, faces_right]])  # (2B, F, 3, 3)
-    query = torch.cat([right_verts, left_verts])  # (2B, V, 3)
-    idx = nearest_centroid(query.detach(), _centroids(tri))  # (2B, V)
-    tri_b = torch.gather(tri, 1, idx[..., None, None].expand(-1, -1, 3, 3))  # (2B, V, 3, 3)
+    query = torch.cat([right_verts[:, ::s], left_verts[:, ::s]])  # (2B, Vq, 3)
+    idx = nearest_centroid(query.detach(), _centroids(tri))  # (2B, Vq)
+    tri_b = torch.gather(tri, 1, idx[..., None, None].expand(-1, -1, 3, 3))  # (2B, Vq, 3, 3)
     depth = _depth_at_tris_single(query, tri_b)
     return torch.cat([depth[:B], depth[B:]], dim=1)
 
@@ -238,12 +363,14 @@ def ray_parity_inside(
     return (crossings % 2) == 1
 
 
-def pair_parity_filter(depths, right_verts, left_verts, faces_right, faces_left):
-    """AND (B, 2V) depths with the ray-parity inside test of both directions."""
+def pair_parity_filter(depths, right_verts, left_verts, faces_right, faces_left, query_subsample: int = 1):
+    """AND (B, 2Vq) depths with the ray-parity inside test of both directions
+    (every ``query_subsample``-th query against the full other mesh)."""
+    s = query_subsample
     inside = torch.cat(
         [
-            ray_parity_inside(right_verts, left_verts, faces_left),
-            ray_parity_inside(left_verts, right_verts, faces_right),
+            ray_parity_inside(right_verts[:, ::s], left_verts, faces_left),
+            ray_parity_inside(left_verts[:, ::s], right_verts, faces_right),
         ],
         dim=1,
     )
@@ -290,24 +417,43 @@ def collision_loss(
     robustifier: Optional[float] = None,
     num_candidates: int = 8,
     backend: str = "auto",
+    query_subsample: int = 1,
+    margin: float = 0.0,
     parity_filter: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Reference-contract collision loss.
 
-    ``backend`` "auto" and "pallas" both mean the exact kernel K1 (its plain
-    version on CPU tensors); ``num_candidates`` is unused there, as in JAX.
-    "fast" is the in-loop single-candidate path (``pair_depths_fast``, the
-    kernel K2) and needs ``num_candidates=1``; it follows the JAX package's
-    TPU branch on every device. ``parity_filter`` ANDs the depths with
-    ``ray_parity_inside``."""
+    ``backend``: "auto" and "pallas" both mean the exact kernel K1 (its plain
+    version on CPU tensors; the JAX package's TPU branch), which runs at
+    full sampling only; "xla" the K-candidate depth (``penetration_depth``,
+    ``num_candidates``); "grid" the reference's 32^3 field
+    (ops/grid_sdf.py, its default knobs); "fast" the in-loop
+    single-candidate path (``pair_depths_fast``, the kernel K2), which needs
+    ``num_candidates=1`` and follows the JAX package's TPU branch on every
+    device, where it takes no margin. ``query_subsample`` strides the
+    queries of each direction, never the mesh. ``margin`` (an outward shell,
+    ``_shell_depth``) applies to "xla" and "fast" only. ``parity_filter``
+    ANDs the depths with ``ray_parity_inside``."""
+    s = query_subsample
+    if margin != 0.0 and backend not in ("xla", "fast"):
+        raise ValueError(f"margin shell is implemented for the xla/fast nearest-face paths, not {backend}")
     if backend == "fast":
         if num_candidates != 1:
             raise ValueError(f"backend 'fast' is single-candidate; got num_candidates={num_candidates}")
-        depths = pair_depths_fast(right_verts, left_verts, faces_right, faces_left)
+        depths = pair_depths_fast(right_verts, left_verts, faces_right, faces_left, s)
     elif backend in ("auto", "pallas"):
+        if s != 1:
+            raise ValueError("the exact metrics kernel always runs at full sampling (query_subsample=1)")
         depths = pair_depths_exact(right_verts, left_verts, faces_right, faces_left)
+    elif backend == "grid":
+        from ihmr_tpu_torch.ops.grid_sdf import pair_depths_grid, pair_grids
+
+        grids = pair_grids(right_verts, left_verts, faces_right, faces_left)
+        depths = pair_depths_grid(right_verts[:, ::s], left_verts[:, ::s], grids)
+    elif backend == "xla":
+        depths = _pair_depths(right_verts, left_verts, faces_right, faces_left, num_candidates, s, margin)
     else:
         raise NotImplementedError(f"collision backend {backend!r} is not ported")
     if parity_filter:
-        depths = pair_parity_filter(depths, right_verts, left_verts, faces_right, faces_left)
+        depths = pair_parity_filter(depths, right_verts, left_verts, faces_right, faces_left, s)
     return depths_to_loss(depths, right_verts, left_verts, hand_type_array, robustifier)

@@ -235,6 +235,60 @@ def short_eval_gaps(a: Dict[str, float], b: Dict[str, float]) -> Dict[str, float
     return {k: abs(a[k] - v) / max(abs(v), 1e-12) for k, v in b.items()}
 
 
+# Small runs of the in-loop collision paths that hold the card against the
+# CPU (chip_smoke.py and tests/test_torch_port_cuda.py), each on
+# make_opt_inputs(variant="interlocked", batch=4, seed=2) with
+# save_mid_freq=2: JAX's per-stage programs with SGD (opt_default's trans,
+# orient and shape stages at epoch 7), the two-pass escalation at threshold
+# 1e-6 (the orient stage at epoch 4: pass 1 leaves one sample in collision,
+# which pass 2 lowers, so the merge takes it) and the grid in the loop (the
+# orient stage at epoch 7, res 8, every 4th face, K=1). The same fp32
+# arithmetic runs on both devices (K1 equals its plain version); only
+# reduction orders differ, which the CPU tests against the JAX package
+# bound at <= 2.4e-7 over these horizons. So: params within 2e-4 (the
+# slice's bound against JAX), each sample's final collision within 1e-3
+# relative, escalation's masks equal.
+SHORT_COLLISION_RUNS = {
+    "sgd_programs": (dict(save_mid_freq=2, optimizer="sgd", stage_hoist_decode=False), (0, 1, 3), 7),
+    "escalation": (dict(save_mid_freq=2, escalate_collision=1e-6), (1,), 4),
+    "grid": (dict(save_mid_freq=2, loop_collision_fast=False, collision_backend="grid", grid_res=8,
+                  grid_face_subsample=4, grid_num_candidates=1), (1,), 7),
+}
+SHORT_COLLISION_TOL = dict(params=2e-4, collision_rtol=1e-3)
+
+
+def run_short_collision_paths(device: DeviceLike = None) -> Dict[str, Dict[str, np.ndarray]]:
+    """``SHORT_COLLISION_RUNS`` on ``device`` -> per run its refined params,
+    final collision and (escalation) escalated mask, on the host."""
+    dev = resolve_device(device)
+    mano = synthetic_mano_model(device=dev)
+    params, batch = make_opt_inputs(mano, batch=4, seed=2, variant="interlocked")
+    out = {}
+    for name, (config, stages, epoch) in SHORT_COLLISION_RUNS.items():
+        strategy = tuple(dataclasses.replace(opt_default[i], epoch=epoch) for i in stages)
+        refined, results = optimize_batch(mano, params, batch, strategy, OptConfig(**config))
+        out[name] = {f"param_{k}": v.cpu().numpy() for k, v in refined.items()}
+        out[name]["collision"] = results["collision_loss"].cpu().numpy()
+        if "escalated" in results:
+            out[name]["escalated"] = results["escalated"].cpu().numpy()
+    return out
+
+
+def short_collision_gaps(a: Dict[str, Dict[str, np.ndarray]], b: Dict[str, Dict[str, np.ndarray]]):
+    """Two ``run_short_collision_paths`` results -> ({run: (largest param gap,
+    largest relative collision gap)}, whether every run is within
+    ``SHORT_COLLISION_TOL`` with equal escalation masks)."""
+    gaps, ok = {}, True
+    for name, ra in a.items():
+        rb = b[name]
+        param = max(float(np.abs(ra[k] - rb[k]).max()) for k in ra if k.startswith("param_"))
+        coll = float((np.abs(ra["collision"] - rb["collision"]) / np.maximum(np.abs(rb["collision"]), 1e-6)).max())
+        gaps[name] = (param, coll)
+        ok &= param <= SHORT_COLLISION_TOL["params"] and coll <= SHORT_COLLISION_TOL["collision_rtol"]
+        ok &= np.array_equal(ra.get("escalated"), rb.get("escalated"))
+    return gaps, bool(ok)
+
+
 # A small MLP run that holds the card against the CPU (chip_smoke.py and
 # tests/test_torch_port_cuda.py): mlp_default stages 0, 3 and 5 at one
 # epoch, N=4 in two batches of 2, i.e. 6 train steps.

@@ -11,14 +11,17 @@ sample's best when every filter loss is under its bar and the select loss
 is strictly lower (the earliest minimum wins). The other steps of a block
 only compute gradients and the optimizer's update.
 
-In-loop collision is the block-frozen nearest-face payload: every
-``reselect_every_blocks`` blocks (a superblock) the current mesh is decoded
-once, each stride-2 query picks its nearest face of the stride-2 face set of
-the other hand (bf16 rank), and those triangles' positions plus the AABB
-scale are frozen for the superblock; the steps then evaluate the exact depth
-of the live queries against the frozen triangles. 301 steps at
+In-loop collision, by default, is the block-frozen nearest-face payload:
+every ``reselect_every_blocks`` blocks (a superblock) the current mesh is
+decoded once, each stride-2 query picks its nearest face of the stride-2
+face set of the other hand (bf16 rank), and those triangles' positions plus
+the AABB scale are frozen for the superblock; the steps then evaluate the
+exact depth of the live queries against the frozen triangles. 301 steps at
 save_mid_freq=10 are 30 blocks in 15 superblocks plus a 1-step tail block
-with its own payload.
+with its own payload. The other in-loop paths of the JAX package (a frozen
+selection at live positions, per-step selection, parity-alternating
+queries, the K-candidate and exact backends, the reference's grid field)
+are listed at ``OptConfig``.
 
 With ``OptConfig.stage_hoist_decode`` (the default, as in the JAX package)
 each stage's forward is partially evaluated against the groups it keeps
@@ -31,22 +34,21 @@ the same results up to fp32 rounding. The payload rebuilds use the stage's
 forward too.
 
 The final pass recomputes every loss at the default weights with the full
-decode and the exact collision kernel (ops/exact_collision.py) ANDed with
-the ray-parity filter.
+decode and ``collision_backend`` on the full meshes (by default the exact
+kernel, ops/exact_collision.py; a grid config measures with the exact
+kernel too) ANDed with the ray-parity filter.
 
 Optimizer note: the reference optimises the batch-MEAN loss; Adam's update
 is invariant to that uniform 1/B gradient scale (up to eps), so per-sample
 trajectories do not depend on the batch size. SGD's are scaled by 1/B, as
 in the JAX package.
 
-Not ported yet (OptConfig or optimize_batch raises if they are asked for):
-escalation, the grid, 2-level and K-candidate backends, parity-alternating
-queries, per-step reselection and unfrozen payload positions. Without the
-hoist, the JAX package runs the block engine above only for Adam on a
-strategy whose stages share epoch, filter and select losses (its fused
-engine); otherwise it runs per-stage programs that reselect faces at every
-step, so ``stage_hoist_decode=False`` with SGD or with such a strategy
-raises until per-step reselection is ported.
+Without the hoist the engine follows the JAX package's choice: the block
+engine on the full decode for Adam on a strategy whose stages share epoch,
+filter and select losses (its fused engine), else its per-stage programs
+(``run_stage_program``: collision afresh at every step). With
+``escalate_collision > 0``, ``optimize_batch`` runs the two-pass grid
+escalation of refine/escalation.py.
 """
 
 from __future__ import annotations
@@ -74,10 +76,12 @@ from ihmr_tpu_torch.ops.collision import (
     collision_loss,
     depths_to_loss,
     pair_aabb_scale,
+    pair_depths_at,
     pair_depths_at_tris,
     pair_indices,
     pair_tris_at,
 )
+from ihmr_tpu_torch.ops.grid_sdf import pair_depths_grid, pair_grids
 from ihmr_tpu_torch.refine.adam import SGD, Adam
 from ihmr_tpu_torch.refine.schedule import OPT_DEFAULT_LOSS_WEIGHTS, Stage
 
@@ -103,14 +107,27 @@ class OptBatch:
 
 @dataclass(frozen=True)
 class OptConfig:
-    """The JAX package's OptConfig: same field names and defaults.
+    """The JAX package's OptConfig: same field names, defaults and meaning
+    (``replace``, ``lazy_active``, ``grid_in_loop`` too).
 
-    Fields whose code paths are not ported raise when set to a non-default
-    value (see ``_UNPORTED``). Ported: optimizer ("adam" / "sgd"),
-    save_mid_freq, robustifier, collision_backend ("auto" / "pallas": the
-    exact kernel), loop_collision_subsample, loop_collision_face_subsample,
-    reselect_every_blocks, loop_collision_margin, exact_parity_filter,
-    stage_hoist_decode."""
+    In the loop, collision runs one of these paths (``compute_losses``):
+      * the block-frozen nearest-face payload (the default): triangles
+        selected and positioned once a superblock, ``tris``;
+      * ``loop_collision_freeze_positions=False``: the selection frozen, the
+        positions tracked every step, ``idx``;
+      * ``loop_collision_lazy_reselect=False``: selection every step (the
+        K=1 ``"xla"`` depth), as JAX's per-stage programs always do;
+      * ``loop_collision_alternate`` (stride 2): even vertices on even
+        steps, odd on odd;
+      * ``loop_collision_fast=False``: ``collision_backend`` at
+        ``num_candidates`` every step ("auto"/"pallas": the exact kernel K1
+        and its backward, which needs ``loop_collision_subsample=1``;
+        "xla": the K-candidate depth; "fast": the kernel K2), or with
+        "grid" the reference's field, rebuilt once a superblock from the
+        ``grid_*`` knobs;
+      * ``escalate_collision > 0``: two passes (refine/escalation.py).
+    Not ported: ``loop_collision_cluster`` (the 2-level hierarchy, a
+    measured negative result of the JAX package); it raises when set."""
 
     optimizer: str = "adam"
     save_mid_freq: int = 10
@@ -146,41 +163,37 @@ class OptConfig:
                 )
         if self.optimizer not in ("adam", "sgd"):
             raise ValueError(f"optimizer={self.optimizer!r}: 'adam' or 'sgd'")
-        if self.optimizer == "sgd" and not self.stage_hoist_decode:
-            raise NotImplementedError(
-                "optimizer='sgd' with stage_hoist_decode=False: the JAX package runs its per-stage "
-                "programs (per-step face reselection) there, which are not ported"
-            )
-        if self.collision_backend not in ("auto", "pallas"):
-            raise NotImplementedError(
-                f"collision_backend={self.collision_backend!r} is not ported; "
-                "'auto' and 'pallas' both mean the exact kernel"
-            )
-        if self.save_mid_freq < 1 or self.loop_collision_subsample < 1:
-            raise ValueError("save_mid_freq and loop_collision_subsample must be >= 1")
-        if self.loop_collision_face_subsample < 1 or self.reselect_every_blocks < 1:
-            raise ValueError("loop_collision_face_subsample and reselect_every_blocks must be >= 1")
+        if self.collision_backend == "2level":
+            raise NotImplementedError("collision_backend='2level' (the 2-level hierarchy) is not ported")
+        if self.collision_backend not in _BACKENDS:
+            raise ValueError(f"collision_backend={self.collision_backend!r}: one of {_BACKENDS}")
+        for name in ("save_mid_freq", "num_candidates", "loop_collision_subsample",
+                     "loop_collision_face_subsample", "reselect_every_blocks", "grid_face_subsample"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name} must be >= 1")
+        if self.grid_res < 2 or self.grid_num_candidates < 0:
+            raise ValueError("grid_res must be >= 2 and grid_num_candidates >= 0")
+
+    def replace(self, **changes) -> "OptConfig":
+        return dataclasses.replace(self, **changes)
+
+    def lazy_active(self) -> bool:
+        """Whether the block engine may freeze nearest-face selections: only
+        on the fast in-loop path (an exact in-loop backend must not be
+        downgraded to it)."""
+        return self.loop_collision_lazy_reselect and self.loop_collision_fast and self.loop_collision_cluster == 0
+
+    def grid_in_loop(self) -> bool:
+        """In-loop collision through the reference's grid field
+        (``loop_collision_fast=False`` with ``collision_backend="grid"``)."""
+        return (not self.loop_collision_fast) and self.collision_backend == "grid"
 
 
-# fields whose non-default values select paths this port does not have yet:
-# the K-candidate backend, the fast-off / per-step reselection / unfrozen
-# in-loop variants, the 2-level hierarchy, parity-alternating queries, the
-# grid backend and escalation
-_UNPORTED = (
-    "num_candidates",
-    "loop_collision_fast",
-    "loop_collision_cluster",
-    "loop_collision_alternate",
-    "loop_collision_lazy_reselect",
-    "loop_collision_freeze_positions",
-    "escalate_collision",
-    "escalate_warm_start",
-    "escalate_fast_build",
-    "grid_face_subsample",
-    "grid_num_candidates",
-    "grid_res",
-    "grid_focus",
-)
+# collision backends this port runs ("auto" and "pallas" are the exact kernel)
+_BACKENDS = ("auto", "pallas", "xla", "grid", "fast")
+# fields whose non-default values select paths this port does not have: the
+# 2-level hierarchy
+_UNPORTED = ("loop_collision_cluster",)
 
 
 def params_from_init(
@@ -222,11 +235,22 @@ def forward(model: ManoModel, p: ParamDict):
     return rv, lv, joints, orthographic_project(joints, p["cam"])
 
 
-def _query_subsets(rv: torch.Tensor, lv: torch.Tensor, sub: int):
-    """Collision query subsets: every ``sub``-th vertex of each hand."""
+def _query_subsets(rv: torch.Tensor, lv: torch.Tensor, sub: int, parity: Optional[int] = None):
+    """Collision query subsets: every ``sub``-th vertex of each hand, or at
+    stride 2 with a ``parity``, the even vertices (parity 0) or the odd ones
+    (parity 1)."""
+    if sub == 2 and parity is not None:
+        return rv[:, parity::2], lv[:, parity::2]
     if sub > 1:
         return rv[:, ::sub], lv[:, ::sub]
     return rv, lv
+
+
+def _strided_faces(model: ManoModel, fsub: int):
+    """(right faces, mirrored-left faces), every ``fsub``-th: Morton order
+    makes that a uniform sub-mesh of the FULL vertex array (queries are
+    strided, the meshes stay full)."""
+    return model.faces[::fsub], model.faces.flip(-1)[::fsub]
 
 
 def compute_losses(
@@ -239,6 +263,10 @@ def compute_losses(
     coll_tris: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
     outputs=None,
     fwd_fn: Optional[Callable[[ParamDict], Tuple[torch.Tensor, ...]]] = None,
+    coll_idx: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    coll_parity: Optional[int] = None,
+    coll_grid=None,
+    skip_zero_collision: bool = True,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """All OPT losses -> (total scalar, aux dict).
 
@@ -248,12 +276,23 @@ def compute_losses(
     ground-truth logging losses are computed only outside the loop (the
     engine never reads them in-loop).
 
-    In the loop, ``coll_tris`` = (tri_r, tri_l, scale) is the block-frozen
-    payload (``_lazy_coll_payload``); a stage whose collision weight is 0
-    skips collision entirely. Outside the loop the exact kernel runs on the
-    full meshes. ``outputs`` reuses a forward already computed for ``p``;
-    ``fwd_fn`` (params -> the same four outputs) replaces the full decode
-    with a stage's hoisted forward (``_make_stage_forward``)."""
+    In the loop, collision takes the first path that applies, in the JAX
+    package's order: weight 0 skips it (unless ``skip_zero_collision`` is
+    False: the JAX package's fused engine, whose traced weights never skip); ``coll_grid`` (block-frozen grids)
+    samples them trilinearly; on the fast path (``loop_collision_fast``),
+    ``coll_tris`` = (tri_r, tri_l, scale) is the block-frozen payload,
+    ``coll_idx`` = (idx_r, idx_l) a frozen selection at the current
+    positions, and ``coll_parity`` alone selects every step on the parity's
+    queries; otherwise ``collision_loss`` runs every step, the K=1 "xla"
+    depth on the fast path, else ``collision_backend`` at
+    ``num_candidates``. In-loop queries are strided by
+    ``loop_collision_subsample`` (the loss scaled back by it) and faces by
+    ``loop_collision_face_subsample``. Outside the loop the final metric
+    runs on the full meshes with ``collision_backend`` ("grid" measures
+    with the exact kernel), ANDed with the ray-parity filter.
+    ``outputs`` reuses a forward already computed for ``p``; ``fwd_fn``
+    (params -> the same four outputs) replaces the full decode with a
+    stage's hoisted forward (``_make_stage_forward``)."""
     if outputs is None:
         outputs = fwd_fn(p) if fwd_fn is not None else forward(model, p)
     rv, lv, joints3d, joints2d = outputs
@@ -284,33 +323,57 @@ def compute_losses(
     )
     total = total + trans_p * weights["trans_loss_weight"]
 
-    w_coll = float(weights["collision_loss_weight"])
+    w_coll = weights["collision_loss_weight"]
+    if in_loop and config.loop_collision_fast:
+        backend, num_candidates = "xla", 1
+    else:
+        backend, num_candidates = config.collision_backend, config.num_candidates
+        if backend == "fast":  # single-candidate whatever num_candidates says, as in JAX
+            num_candidates = 1
+        if not in_loop and backend == "grid":
+            # the grid is an in-loop mechanism; the final metric is exact
+            backend, num_candidates = "auto", 8
     sub = config.loop_collision_subsample if in_loop else 1
-    if in_loop and w_coll == 0.0:
-        # weight 0: no gradient and no filter pressure; skip the work
+    fsub = config.loop_collision_face_subsample if in_loop else 1
+    fast_in_loop = in_loop and config.loop_collision_fast
+    margin = config.loop_collision_margin
+    if in_loop and skip_zero_collision and float(w_coll) == 0.0:
+        # a weight of 0: no gradient and no filter pressure, so skip the work
         B, V = rv.shape[0], rv.shape[1]
         coll = rv.new_zeros(())
         coll_batch = rv.new_zeros((B,))
         coll_origin = rv.new_zeros((B, 2 * V))
-    elif in_loop:
-        if coll_tris is None:
-            raise ValueError("in-loop collision needs the block-frozen payload (coll_tris)")
+    elif in_loop and coll_grid is not None:
+        q_r, q_l = _query_subsets(rv, lv, sub, coll_parity)
+        depths = pair_depths_grid(q_r, q_l, coll_grid)
+        coll, coll_batch, coll_origin = depths_to_loss(depths, rv, lv, batch.hand_type_array, config.robustifier)
+    elif fast_in_loop and coll_tris is not None:
         tri_r, tri_l, frozen_scale = coll_tris
-        q_r, q_l = _query_subsets(rv, lv, sub)
-        depths = pair_depths_at_tris(q_r, q_l, tri_r, tri_l, margin=config.loop_collision_margin)
+        q_r, q_l = _query_subsets(rv, lv, sub, coll_parity)
+        depths = pair_depths_at_tris(q_r, q_l, tri_r, tri_l, margin=margin)
         coll, coll_batch, coll_origin = depths_to_loss(
             depths, rv, lv, batch.hand_type_array, config.robustifier, scale=frozen_scale
         )
+    elif fast_in_loop and (coll_idx is not None or coll_parity is not None):
+        # a frozen selection at the current positions, or a fresh one on the
+        # parity's queries
+        q_r, q_l = _query_subsets(rv, lv, sub, coll_parity)
+        faces_r, faces_l = _strided_faces(model, fsub)
+        idx = coll_idx if coll_idx is not None else pair_indices(q_r, q_l, rv, lv, faces_r, faces_l)
+        depths = pair_depths_at(q_r, q_l, rv, lv, faces_r, faces_l, *idx, margin=margin)
+        coll, coll_batch, coll_origin = depths_to_loss(depths, rv, lv, batch.hand_type_array, config.robustifier)
     else:
         coll, coll_batch, coll_origin = collision_loss(
             rv,
             lv,
-            model.faces,
-            model.faces.flip(-1),  # mirrored-left winding
+            *_strided_faces(model, fsub),
             batch.hand_type_array,
             robustifier=config.robustifier,
-            backend=config.collision_backend,
-            parity_filter=config.exact_parity_filter,
+            num_candidates=num_candidates,
+            backend=backend,
+            query_subsample=sub,
+            margin=margin if in_loop else 0.0,
+            parity_filter=(not in_loop) and config.exact_parity_filter,
         )
     if sub > 1:  # keep the loss magnitude comparable to full sampling
         coll = coll * sub
@@ -338,22 +401,45 @@ _FILTER_KEYS = {
 
 
 @torch.no_grad()
-def _lazy_coll_payload(model: ManoModel, p: ParamDict, config: OptConfig, fwd_fn=None):
-    """The block-frozen collision payload at the current params:
-    (tri_r, tri_l, scale) — each stride-``loop_collision_subsample`` query's
-    nearest face of the other hand's stride-``loop_collision_face_subsample``
-    face set (Morton order makes that a uniform sub-mesh of the FULL vertex
-    array), as positions, plus the AABB normalisation scale. The meshes come
-    from ``fwd_fn`` when given (the stage's hoisted forward), else from the
-    full decode."""
+def _lazy_coll_payload(
+    model: ManoModel,
+    p: ParamDict,
+    config: OptConfig,
+    parities: Tuple[Optional[int], ...] = (None,),
+    mode: str = "tris",
+    fwd_fn=None,
+) -> tuple:
+    """The block-frozen collision payload at the current params, one entry
+    per parity in ``parities`` (None = the fixed-stride queries), from one
+    decode (``fwd_fn`` when given: the stage's hoisted forward):
+
+      * ``"tris"``: (tri_r, tri_l, scale), each stride-
+        ``loop_collision_subsample`` query's nearest face of the other
+        hand's stride-``loop_collision_face_subsample`` face set (Morton
+        order makes that a uniform sub-mesh of the FULL vertex array), as
+        positions, plus the AABB normalisation scale;
+      * ``"idx"``: (idx_r, idx_l), the selection alone (positions are taken
+        at every step);
+      * ``"grid"``: the two hands' grids from the ``grid_*`` knobs
+        (``ops/grid_sdf.py::pair_grids``, the full face set unless
+        ``grid_face_subsample``); query-independent, so one entry."""
     rv, lv, _, _ = fwd_fn(p) if fwd_fn is not None else forward(model, p)
-    fsub = config.loop_collision_face_subsample
-    faces_r = model.faces[::fsub]
-    faces_l = model.faces.flip(-1)[::fsub]
-    q_r, q_l = _query_subsets(rv, lv, config.loop_collision_subsample)
-    idx = pair_indices(q_r, q_l, rv, lv, faces_r, faces_l)
-    tri_r, tri_l = pair_tris_at(rv, lv, faces_r, faces_l, *idx)
-    return tri_r, tri_l, pair_aabb_scale(rv, lv)
+    if mode == "grid":
+        return (
+            pair_grids(
+                rv, lv, model.faces, model.faces.flip(-1), res=config.grid_res,
+                num_candidates=config.grid_num_candidates or config.num_candidates,
+                face_subsample=config.grid_face_subsample, focus=config.grid_focus,
+            ),
+        )
+    faces_r, faces_l = _strided_faces(model, config.loop_collision_face_subsample)
+    scale = pair_aabb_scale(rv, lv) if mode == "tris" else None
+    out = []
+    for parity in parities:
+        q_r, q_l = _query_subsets(rv, lv, config.loop_collision_subsample, parity)
+        idx = pair_indices(q_r, q_l, rv, lv, faces_r, faces_l)
+        out.append((*pair_tris_at(rv, lv, faces_r, faces_l, *idx), scale) if mode == "tris" else idx)
+    return tuple(out)
 
 
 @torch.no_grad()
@@ -431,10 +517,21 @@ def run_stage(
     batch: OptBatch,
     stage: Stage,
     config: OptConfig,
+    skip_zero_collision: bool = True,
 ) -> ParamDict:
     """One refinement stage with the block engine described in the module
     docstring -> params with the stage's groups set to each sample's best
-    snapshot."""
+    snapshot.
+
+    The collision payload depends on the config: a superblock's frozen
+    triangles (``tris``), its frozen selection (``idx``) or its grids
+    (``grid``); with ``loop_collision_alternate`` at stride 2 one entry per
+    parity, step j taking entry j % 2. A config that neither freezes
+    selections (``lazy_active``) nor samples grids runs collision afresh at
+    every step. ``skip_zero_collision=False`` is the JAX package's fused
+    engine on a strategy where some stage weighs collision: a weight-0 stage
+    then still computes collision (its per-sample values enter the filter)
+    and builds payloads."""
     w = stage.weights
     filter_names = [name for name, _pct in stage.filter_loss]
     select_key = _FILTER_KEYS[stage.select_loss]
@@ -443,7 +540,12 @@ def run_stage(
     bars_pct = torch.tensor(
         [(float(pct) + 0.1) / 100.0 for _n, pct in stage.filter_loss], dtype=torch.float32, device=device
     )
-    blocked = float(w["collision_loss_weight"]) != 0.0  # a block payload exists
+    alternate = config.loop_collision_alternate and config.loop_collision_subsample == 2
+    coll_zero = skip_zero_collision and float(w["collision_loss_weight"]) == 0.0
+    grid_mode = config.grid_in_loop()
+    payload_mode = "grid" if grid_mode else ("tris" if config.loop_collision_freeze_positions else "idx")
+    parities = (0, 1) if alternate else (None,)
+    blocked = (not coll_zero) and (config.lazy_active() or grid_mode)  # a block payload exists
     steps = stage.epoch + 1
 
     subset = {k: params[k].detach().clone() for k in stage.update_params}
@@ -454,10 +556,16 @@ def run_stage(
     best_select = torch.full((B,), float("inf"), dtype=torch.float32, device=device)
     bars = torch.zeros((len(filter_names), B), dtype=torch.float32, device=device)
 
-    def grads_at(payload):
+    def grads_at(payload_set, j):
+        parity = j % 2 if alternate else None
+        payload = {}
+        if payload_set is not None:
+            entry = payload_set[j % 2] if alternate and len(payload_set) == 2 else payload_set[0]
+            payload = {"coll_" + payload_mode: entry}
         leaves = {k: x.requires_grad_(True) for k, x in subset.items()}
         total, aux = compute_losses(
-            model, {**frozen, **leaves}, batch, w, config, in_loop=True, coll_tris=payload, fwd_fn=fwd_fn
+            model, {**frozen, **leaves}, batch, w, config, in_loop=True, fwd_fn=fwd_fn,
+            coll_parity=parity, skip_zero_collision=skip_zero_collision, **payload,
         )
         grads = torch.autograd.grad(total, list(leaves.values()))
         return {k: a.detach() for k, a in aux.items()}, dict(zip(leaves, grads))
@@ -466,9 +574,9 @@ def run_stage(
         nonlocal subset
         subset = opt.step(subset, grads, stage.lr)
 
-    def run_block(j0, length, payload):
+    def run_block(j0, length, payload_set):
         nonlocal best, best_select, bars
-        aux, grads = grads_at(payload)
+        aux, grads = grads_at(payload_set, j0)
         with torch.no_grad():
             cur = torch.stack([aux[_FILTER_KEYS[n]] for n in filter_names], dim=0)  # (NF, B)
             cur_select = aux[select_key]
@@ -480,15 +588,17 @@ def run_stage(
             best_select = torch.where(improve, cur_select, best_select)
             best = {k: torch.where(improve[:, None], subset[k], best[k]) for k in subset}
         update(grads)
-        for _ in range(length - 1):  # lean steps: gradient + update only
-            update(grads_at(payload)[1])
+        for j in range(j0 + 1, j0 + length):  # lean steps: gradient + update only
+            update(grads_at(payload_set, j)[1])
 
     freq = config.save_mid_freq
     nblocks, tail = divmod(steps, freq)
     kre = config.reselect_every_blocks if blocked else 1
 
     def payload_now():
-        return _lazy_coll_payload(model, {**frozen, **subset}, config, fwd_fn) if blocked else None
+        if not blocked:
+            return None
+        return _lazy_coll_payload(model, {**frozen, **subset}, config, parities, payload_mode, fwd_fn)
 
     # superblocks of kre snapshot blocks share one payload rebuild
     nsb, rem = divmod(nblocks, kre)
@@ -503,6 +613,58 @@ def run_stage(
             run_block(j0 + i * freq, freq, payload)
         if tail:
             run_block(j0 + rem * freq, tail, payload)
+    return {**frozen, **{k: x.detach() for k, x in best.items()}}
+
+
+def run_stage_program(
+    model: ManoModel,
+    params: ParamDict,
+    batch: OptBatch,
+    stage: Stage,
+    config: OptConfig,
+) -> ParamDict:
+    """One stage as the JAX package's per-stage programs run it
+    (``run_stage``; what ``optimize_batch`` runs without the hoist for SGD
+    or a strategy whose stages differ in epoch, filter or select loss): the
+    full decode at every step and collision afresh at every step (no block
+    payload, no parity). Step 0 sets the origin losses, the filter bars and
+    the first best, then takes the first update; each step j in 1..epoch
+    snapshots when j % save_mid_freq == 0 (every filter loss under its bar
+    and the select loss strictly lower) before its update. The optimizers
+    are optax's: Adam divides the corrected moment before the learning rate
+    (``lr_last``), SGD keeps momentum 0.9."""
+    w = stage.weights
+    filter_names = [name for name, _pct in stage.filter_loss]
+    select_key = _FILTER_KEYS[stage.select_loss]
+    device = params["trans"].device
+    bars_pct = torch.tensor(
+        [(float(pct) + 0.1) / 100.0 for _n, pct in stage.filter_loss], dtype=torch.float32, device=device
+    )
+    subset = {k: params[k].detach().clone() for k in stage.update_params}
+    frozen = {k: v.detach() for k, v in params.items() if k not in stage.update_params}
+    opt = Adam(subset, lr_last=True) if config.optimizer == "adam" else SGD(subset)
+
+    def grads_at():
+        leaves = {k: x.requires_grad_(True) for k, x in subset.items()}
+        total, aux = compute_losses(model, {**frozen, **leaves}, batch, w, config, in_loop=True)
+        grads = torch.autograd.grad(total, list(leaves.values()))
+        return {k: a.detach() for k, a in aux.items()}, dict(zip(leaves, grads))
+
+    aux, grads = grads_at()
+    bars = torch.stack([aux[_FILTER_KEYS[n]] for n in filter_names], dim=0) * (1.0 + bars_pct[:, None])
+    best_select = aux[select_key]
+    best = {k: x.detach() for k, x in subset.items()}
+    subset = opt.step(subset, grads, stage.lr)
+    for j in range(1, stage.epoch + 1):
+        aux, grads = grads_at()
+        if j % config.save_mid_freq == 0:
+            with torch.no_grad():
+                cur = torch.stack([aux[_FILTER_KEYS[n]] for n in filter_names], dim=0)
+                cur_select = aux[select_key]
+                improve = (cur <= bars).all(dim=0) & (cur_select < best_select)
+                best_select = torch.where(improve, cur_select, best_select)
+                best = {k: torch.where(improve[:, None], subset[k], best[k]) for k in subset}
+        subset = opt.step(subset, grads, stage.lr)
     return {**frozen, **{k: x.detach() for k, x in best.items()}}
 
 
@@ -526,15 +688,30 @@ def optimize_batch(
 ) -> Tuple[ParamDict, Dict[str, torch.Tensor]]:
     """All stages, then a final pass at the default loss weights with the
     full decode and the exact collision metric -> (refined params, results
-    dict)."""
-    if not config.stage_hoist_decode and not _strategy_is_fusable(strategy):
-        raise NotImplementedError(
-            "stage_hoist_decode=False on a strategy whose stages differ in epoch, filter or select loss: "
-            "the JAX package runs its per-stage programs (per-step face reselection) there, which are not ported"
-        )
+    dict).
+
+    The engine is chosen as the JAX package chooses it: the block engine
+    with each stage's hoisted forward (``stage_hoist_decode``, Adam or SGD);
+    else, for Adam on a strategy whose stages share epoch, filter and select
+    losses, the block engine on the full decode (JAX's fused engine); else
+    the per-stage programs (``run_stage_program``). With
+    ``escalate_collision > 0`` this is pass 1 of the two-pass grid escalation
+    (refine/escalation.py), which adds ``results["escalated"]``."""
+    if config.escalate_collision > 0.0:
+        from ihmr_tpu_torch.refine.escalation import optimize_batch_escalated
+
+        return optimize_batch_escalated(model, params_init, batch, strategy, config)
     params = {k: x.detach() for k, x in params_init.items()}
-    for stage in strategy:
-        params = run_stage(model, params, batch, stage, config)
+    if config.stage_hoist_decode:
+        for stage in strategy:
+            params = run_stage(model, params, batch, stage, config)
+    elif _strategy_is_fusable(strategy) and config.optimizer == "adam":
+        all_coll_zero = all(float(s.weights["collision_loss_weight"]) == 0.0 for s in strategy)
+        for stage in strategy:
+            params = run_stage(model, params, batch, stage, config, skip_zero_collision=all_coll_zero)
+    else:
+        for stage in strategy:
+            params = run_stage_program(model, params, batch, stage, config)
 
     with torch.no_grad():
         outputs = forward(model, params)

@@ -149,10 +149,6 @@ REFUSED = [
     (["train-baseline", "--display_freq", "8"], "item 2"),
     (["train-baseline", "--live_port", "0"], "item 2"),
     (["test-baseline", "--visualize_eval"], "item 2"),
-    (["optimize", "--loop_collision_backend", "grid"], "item 1"),
-    (["optimize", "--escalate_collision", "0.5"], "item 1"),
-    (["optimize", "--loop_collision_eager_reselect"], "item 1"),
-    (["optimize", "--loop_collision_track_positions"], "item 1"),
 ]
 
 

@@ -37,6 +37,15 @@ frames of ``streaming_strategy(6)`` then one at the tracker's default
 schedule, at B=2, on the card and on the CPU agree within 2e-4 (the
 tracker parity test's bound); a bf16 train step of ResNet-50 launches K3 53 times, each
 on a bf16 activation.
+
+The in-loop collision paths: JAX's per-stage SGD programs, the two-pass
+escalation and the grid in the loop (``pipeline.run_short_collision_paths``)
+on the card and on the CPU within ``pipeline.SHORT_COLLISION_TOL`` (params
+2e-4, final collision 1e-3 relative, escalation masks equal); the grid
+build chunked into many calls gives the unchunked bits on the card; a
+gradient step with K1 in the loop launches K1 once, and its gradient
+matches the same step on the CPU (the plain version) within 1e-5 of the
+largest entry.
 """
 
 import dataclasses
@@ -63,11 +72,13 @@ from ihmr_tpu_torch.pipeline import (
     allclose_ratio,
     bf16_band_ratios,
     make_train_bench_inputs,
+    run_short_collision_paths,
     run_short_mlp,
     run_short_opt_eval,
     run_short_predict,
     run_short_tracker,
     run_short_train,
+    short_collision_gaps,
     short_eval_gaps,
     short_mlp_gaps,
     short_tracker_gap,
@@ -374,3 +385,44 @@ def test_bf16_train_step_launches_k3_on_bf16(cuda):
         h.remove()
     assert K3.launch_count == 53 and dtypes == [torch.bfloat16] * 53
     assert all(bool(torch.isfinite(v).all()) for v in metrics.values())
+
+
+def test_short_collision_paths_match_cpu(cuda):
+    gaps, ok = short_collision_gaps(run_short_collision_paths(cuda), run_short_collision_paths("cpu"))
+    print(f"collision paths, card vs CPU (params, collision): {gaps}")
+    assert ok, gaps
+
+
+def test_chunked_grid_build_gives_the_same_bits(cuda, monkeypatch):
+    from ihmr_tpu_torch.ops import grid_sdf
+
+    mano = synthetic_mano_model(device=cuda)
+    params, _ = make_opt_inputs(mano, batch=4, seed=0, variant="interlocked")
+    with torch.no_grad():
+        rv, _, _, _ = forward(mano, params)
+    whole = grid_sdf.build_penetration_grid(rv, mano.faces, res=32, num_candidates=8)
+    monkeypatch.setattr(grid_sdf, "BUILD_CHUNK_PAIRS", 1000 * mano.faces.shape[0])  # 1000 rows a call
+    chunked = grid_sdf.build_penetration_grid(rv, mano.faces, res=32, num_candidates=8)
+    for a, b in zip(whole, chunked):
+        assert torch.equal(a, b)
+    assert bool((whole[0] > 0).any())
+
+
+def test_exact_kernel_in_the_loop_launches_once_a_step(cuda):
+    from ihmr_tpu_torch.refine import compute_losses
+
+    config = OptConfig(loop_collision_fast=False, loop_collision_subsample=1)
+    weights = opt_default[1].weights
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        mano = synthetic_mano_model(device=dev)
+        params, batch = make_opt_inputs(mano, batch=2, seed=0, variant="interlocked")
+        leaves = {k: params[k].clone().requires_grad_(True) for k in ("right_orient", "left_orient")}
+        K.reset_launch_count()
+        total, _ = compute_losses(mano, {**params, **leaves}, batch, weights, config, in_loop=True)
+        grads.append([g.cpu() for g in torch.autograd.grad(total, list(leaves.values()))])
+        torch.cuda.synchronize()
+        assert K.launch_count == (1 if dev.type == "cuda" else 0)
+    scale = max(float(g.abs().max()) for g in grads[1])
+    for a, b in zip(*grads):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5 * scale)

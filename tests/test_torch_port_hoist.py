@@ -178,7 +178,7 @@ def test_stage_forward_matches_full_decode(inputs, name):
             np.testing.assert_allclose(g.numpy(), w.numpy(), atol=BOUND[kind], err_msg=out)
 
     config = OptConfig()
-    payload = TE._lazy_coll_payload(tm, far, config)
+    payload = TE._lazy_coll_payload(tm, far, config)[0]
 
     def grads(fwd_fn):
         leaves = {k: far[k].clone().requires_grad_(True) for k in stage.update_params}
@@ -233,15 +233,20 @@ def test_opt_with_cam_runs_hoisted(inputs, monkeypatch):
     """The 100-step cam stage of opt_with_cam (cut to 4 epochs here) runs
     with the decode hoisted, and matches the full decode. Its stages differ
     in their losses, so without the hoist the JAX package runs per-stage
-    programs: the port refuses ``stage_hoist_decode=False`` there."""
+    programs, and so does the port (``run_stage_program``; held to JAX in
+    tests/test_torch_port_programs_cam.py)."""
     _, _, tm, tp, tb = inputs
     strategy = tuple(dataclasses.replace(s, epoch=4) for s in opt_with_cam)
     assert TE._make_stage_forward(tm, strategy[-1], tp) is not None
     config = OptConfig(save_mid_freq=2)
     p_h, _ = optimize_batch(tm, tp, tb, strategy, config)
     p_f, _ = _full_decode(monkeypatch, lambda: optimize_batch(tm, tp, tb, strategy, config))
-    with pytest.raises(NotImplementedError):
-        optimize_batch(tm, tp, tb, strategy, dataclasses.replace(config, stage_hoist_decode=False))
+    calls, program = [], TE.run_stage_program
+    with monkeypatch.context() as m:
+        m.setattr(TE, "run_stage_program", lambda *a: calls.append(a[3]) or program(*a))
+        p_p, _ = optimize_batch(tm, tp, tb, strategy, dataclasses.replace(config, stage_hoist_decode=False))
+    assert calls == list(strategy)
+    assert all(bool(torch.isfinite(v).all()) for v in p_p.values()) and not torch.allclose(p_p["cam"], tp["cam"])
     assert all(bool(torch.isfinite(v).all()) for v in p_h.values())
     assert not torch.allclose(p_h["cam"], tp["cam"])
     assert _gap(p_h, p_f) <= 5e-5

@@ -101,20 +101,28 @@ def test_opt_config_defaults_and_unported_paths():
     ours, ref = OptConfig(), JE.OptConfig()
     for f in dataclasses.fields(OptConfig):
         assert getattr(ours, f.name) == getattr(ref, f.name), f.name
-    for bad in (
+    # the 2-level hierarchy is the one path not ported
+    with pytest.raises(NotImplementedError):
+        OptConfig(loop_collision_cluster=2)
+    with pytest.raises(NotImplementedError):
+        OptConfig(collision_backend="2level")
+    # every other in-loop path constructs (the K-candidate, grid and exact
+    # backends, per-step reselection, tracked positions, parity-alternating
+    # queries, escalation, the grid knobs), and so do SGD and the full decode
+    # alone or together (JAX's per-stage programs)
+    for ok in (
         dict(collision_backend="xla"), dict(num_candidates=4), dict(loop_collision_fast=False),
         dict(loop_collision_alternate=True), dict(escalate_collision=1.0), dict(loop_collision_lazy_reselect=False),
-        dict(loop_collision_freeze_positions=False), dict(loop_collision_cluster=2), dict(grid_res=16),
+        dict(loop_collision_freeze_positions=False), dict(grid_res=16), dict(collision_backend="grid", grid_focus=True),
+        dict(escalate_warm_start=0.0, escalate_fast_build=False, grid_face_subsample=4, grid_num_candidates=2),
+        dict(stage_hoist_decode=False), dict(optimizer="sgd"), dict(stage_hoist_decode=False, optimizer="sgd"),
     ):
-        with pytest.raises(NotImplementedError):
-            OptConfig(**bad)
-    # ported since the first slice: the full-decode engine (JAX's fused
-    # engine) and SGD in the hoisted engine; SGD without the hoist is JAX's
-    # per-stage programs, not ported
-    assert not OptConfig(stage_hoist_decode=False).stage_hoist_decode
-    assert OptConfig(optimizer="sgd").optimizer == "sgd"
-    with pytest.raises(NotImplementedError):
-        OptConfig(stage_hoist_decode=False, optimizer="sgd")
+        cfg = OptConfig(**ok)
+        for name, value in ok.items():
+            assert getattr(cfg, name) == value, name
+        ref = JE.OptConfig(**ok)
+        assert (cfg.lazy_active(), cfg.grid_in_loop()) == (ref.lazy_active(), ref.grid_in_loop()), ok
+    assert OptConfig().replace(grid_res=8) == OptConfig(grid_res=8)
     with pytest.raises(ValueError):
         OptConfig(optimizer="rmsprop")
 
@@ -135,7 +143,7 @@ def payloads(jax_inputs, torch_inputs):
     tm, tp, _ = torch_inputs
     jcfg = JE.OptConfig(save_mid_freq=10)
     payload = jax.jit(lambda p: JE._lazy_coll_payload(jm, p, jcfg, (None,), "tris")[0])(jp)
-    return payload, TE._lazy_coll_payload(tm, tp, OptConfig())
+    return payload, TE._lazy_coll_payload(tm, tp, OptConfig(), (None,), "tris")[0]
 
 
 def test_in_loop_payload_matches_jax(payloads):

@@ -328,7 +328,7 @@ def lockstep_stage(jm, tm, jentry, jb, tb, stage, check_unrecorded=False, hoist=
         prec = Recorder()
         with prec.patched():
             ptri = TE._lazy_coll_payload(tm, {**tentry, **{k: T(v) for k, v in jrec.evals[t].items()}}, OptConfig(),
-                                         fwd)
+                                         fwd_fn=fwd)[0]
         same_pick = np.concatenate([prec.picks[0][1].numpy() == jrec.picks[r][1],
                                     prec.picks[0][2].numpy() == jrec.picks[r][2]], axis=1)
         tri_gap = max(float(np.abs(ptri[i].numpy() - jpay[i]).reshape(B, -1, 9)[same_pick.reshape(B, 2, -1)[:, i]]

@@ -71,8 +71,10 @@ def test_scan_covers_the_package():
         "ihmr_tpu_torch/mano/loader.py",
         "ihmr_tpu_torch/ops/bn_stats.py",
         "ihmr_tpu_torch/ops/exact_collision.py",
+        "ihmr_tpu_torch/ops/grid_sdf.py",
         "ihmr_tpu_torch/ops/nearest_centroid.py",
         "ihmr_tpu_torch/refine/adam.py",
+        "ihmr_tpu_torch/refine/escalation.py",
         "ihmr_tpu_torch/refine/mlp_engine.py",
         "ihmr_tpu_torch/refine/opt_engine.py",
         "ihmr_tpu_torch/refine/tracker.py",
