@@ -176,6 +176,40 @@ Phases (each raises on failure; any failure exits non-zero before the last line)
    largest entry. Then ``optimize --escalate_collision 0.5`` and
    ``optimize --loop_collision_backend grid`` through the CLI on 16 files
    (write_corpus seed 2), B=8, stages cut to epoch 20: finite metrics.
+14. The port's JPEG writer (run before phase 7): ``image_cases.check_encoder``
+   encodes seeded noise and ramps at 1x1, 7x9, 15x17, 16x16, 33x65, 224x224
+   and 896x448; each file's SHA-256 must be that of the bytes
+   ``cv2.imencode(".jpg")`` writes (``tests/data/jpeg/encode_expected.json``);
+   host ms per 896x448 encode.
+15. Rendering, on phase 7's corpus and checkpoint (after phase 7):
+   ``test-baseline --visualize_eval`` (B=64; the 256 renders forked over 16
+   workers, under a time limit of RENDER_TIMEOUT so that a hung worker is an
+   error; every render must run in a forked worker, none in this process,
+   which ``render_results``' serial fallback would use): 256 ``.jpg`` files, each decoding to (896, 448, 3), K1 once a
+   batch; render seconds in all and per result; the same results rendered
+   one after another must give the same bytes; then ``visualize --results
+   <its pkl> --limit 16``: 16 ``.obj`` and 16 ``.jpg`` files, the jpgs
+   byte-equal to the rendered ones, no kernel launched.
+16. Training visuals: ``train-baseline --display_freq 8 --live_port 0``, one
+   epoch of 4 steps on phase 7's corpus (checkpoints in a directory of
+   their own, stock BatchNorm): a display every step, five PNG panels each,
+   ``index.html`` listing them, a line saying whether loss curves were
+   drawn or skipped (no matplotlib), the live monitor answering ``/``,
+   ``/losses.json`` (one point a display) and ``/images/<a panel>`` (its
+   bytes) over HTTP; K1 once per display.
+17. Two processes on the one card: ``test-baseline --rank r --world_size 2``
+   (B=64) on phase 7's corpus and checkpoint, each process in its own
+   working directory; the shards must be disjoint and cover the 256
+   samples; then a gloo rendezvous through ``parallel.dist`` and rank 0's
+   ``gather_evaluators``: its metric_dict within pipeline.SHORT_EVAL_RTOL
+   of phase 7's single-process test-baseline; K1 twice in each process.
+18. The 2-level hierarchy (``loop_collision_cluster=8``) and the merged
+   payload builder (the ``IHMR_PAYLOAD_FUSED`` switch, ``pair_select_tris``),
+   each in turns with the default engine (default, 2-level, 2-level,
+   default, then default, merged, merged, default) at phase 13's shape:
+   hands/sec, peak memory and the final mean exact collision of each, K1
+   once per run (after phase 13; phase 12's small card-vs-CPU runs include
+   the 2-level hierarchy at B=4).
 
 The run's time in all is printed beside the card's name and power limit.
 
@@ -191,6 +225,7 @@ import dataclasses
 import json
 import math
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -951,89 +986,369 @@ def _time_decode(img_dir):
         f"{(t2 - t1) / n * 1e3:.4f} ms)")
 
 
-def phase_cli_chain(dev, replayed_ms_per_step, ckpt_dir):
-    """The five workload commands at full width on a corpus of files; the
-    checkpoints go to ``ckpt_dir`` (the serving phase serves them)."""
-    import tempfile
-
+def phase_cli_chain(dev, replayed_ms_per_step, ckpt_dir, work):
+    """The five workload commands at full width on a corpus of files written
+    under ``work`` (the rendering, visualizer and two-process phases reuse
+    it); the checkpoints go to ``ckpt_dir`` (the serving phase serves them).
+    Returns (launch counts, train ms/step, the metric_dict of each evaluation)."""
     from ihmr_tpu_torch.data.synthetic import write_corpus
     from ihmr_tpu_torch.refine import mlp_default
 
     log(f"command line: the five workload commands on N={CLI_N} PNG files, ResNet-50 224x224, full MANO mesh")
     counts = {}
-    with tempfile.TemporaryDirectory() as work:
-        t0 = time.perf_counter()
-        write_corpus(os.path.join(work, "corpus"), CLI_N, seed=0)
-        log(f"  corpus written in {time.perf_counter() - t0:.2f}s")
-        _time_decode(os.path.join(work, "corpus", "hand26m", "image"))
-        common = ["--data_root", os.path.join(work, "corpus"), "--anno_path", "anno.pkl", "--synthetic_mano",
-                  "--checkpoints_dir", ckpt_dir, "--device", "cuda"]
-        pred, pgt = os.path.join(work, "chain_pred.pkl"), os.path.join(work, "pseudo_gt.pkl")
-        cwd = os.getcwd()
-        os.chdir(work)  # evaluate_results/ is written under the working directory
+    t0 = time.perf_counter()
+    write_corpus(os.path.join(work, "corpus"), CLI_N, seed=0)
+    log(f"  corpus written in {time.perf_counter() - t0:.2f}s")
+    _time_decode(os.path.join(work, "corpus", "hand26m", "image"))
+    common = _corpus_flags(work, ckpt_dir)
+    pred, pgt = os.path.join(work, "chain_pred.pkl"), os.path.join(work, "pseudo_gt.pkl")
+    cwd = os.getcwd()
+    os.chdir(work)  # evaluate_results/ is written under the working directory
+    try:
+        os.environ["IHMR_BN_IMPL"] = "pallas"
         try:
-            os.environ["IHMR_BN_IMPL"] = "pallas"
-            try:
-                train, counts["cli_train"], sec = _cli(
-                    ["train-baseline", "--batchSize", "64", "--total_epoch", "1", "--save_epoch_freq", "1",
-                     "--use_random_flip", "--use_random_rescale", "--use_random_position"] + common)
-            finally:
-                del os.environ["IHMR_BN_IMPL"]
-            (epoch,) = train["epoch_stats"]
-            steps = epoch["steps"]
-            step_ms = epoch["step_seconds"] / steps * 1e3
-            log(f"  train-baseline: {sec:.3f}s wall; {steps} steps, TimeStat data {epoch['data_seconds']:.3f}s, "
-                f"forward {epoch['forward_seconds']:.3f}s -> {step_ms:.3f} ms/step, {64e3 / step_ms:.3f} images/sec "
-                f"(phase 5's replayed batch in this run: {replayed_ms_per_step:.3f} ms/step, "
-                f"{64e3 / replayed_ms_per_step:.3f} images/sec); total loss {epoch['total_loss']}; "
-                f"launches {counts['cli_train']}")
-            # 53 BatchNorms a step, each one K3 launch; collision loss off, no evaluation
-            check_counts("train-baseline", counts["cli_train"], exact_collision=0, nearest_centroid=0,
-                         bn_stats=53 * steps)
-            if steps != CLI_N // 64 or not np.isfinite(epoch["total_loss"]).all():
-                raise AssertionError(f"train-baseline ran {steps} steps, losses {epoch['total_loss']}")
-
-            commands = [
-                ("cli_test_baseline", ["test-baseline", "--batchSize", "64", "--export_pred", pred],
-                 # one eval_step per batch: one exact pass (both directions in one launch), eval-mode BatchNorm
-                 dict(exact_collision=CLI_N // 64, nearest_centroid=0, bn_stats=0)),
-                ("cli_optimize", ["optimize", "--pred_path", pred, "--batchSize", "128", "--stage_epochs", "20",
-                                  "--export_pseudo_gt", pgt],
-                 # one optimize_batch per batch, each ending in one exact pass
-                 dict(exact_collision=CLI_N // 128, nearest_centroid=0, bn_stats=0)),
-                ("cli_train_mlp", ["train-mlp", "--pred_path", pred, "--use_opt_params", "--opt_params_path", pgt,
-                                   "--batchSize", "128", "--stage_epochs", "2"],
-                 # K2 once per train step (6 stages x 2 epochs x 2 batches); K1 in the warm pass and in each
-                 # stage's selection pass, once per batch
-                 dict(exact_collision=(1 + len(mlp_default)) * CLI_N // 128,
-                      nearest_centroid=len(mlp_default) * 2 * CLI_N // 128, bn_stats=0)),
-                ("cli_test_mlp", ["test-mlp", "--pred_path", pred, "--batchSize", "128"],
-                 # the cascade per batch: the seed pass, one per stage and the final pass
-                 dict(exact_collision=(len(mlp_default) + 2) * CLI_N // 128, nearest_centroid=0, bn_stats=0)),
-            ]
-            metrics = {}
-            for path, argv, expected in commands:
-                out, counts[path], sec = _cli(argv + common)
-                log(f"  {argv[0]}: {sec:.3f}s wall, {out['seconds']:.3f}s in its loops: data {out['data_seconds']:.3f}s, "
-                    f"the rest (device work and its dispatch, the Evaluator) {out['forward_seconds']:.3f}s; "
-                    f"launches {counts[path]} (expected {expected})")
-                check_counts(argv[0], counts[path], **expected)
-                if "evaluator" in out:
-                    if len(out["evaluator"].pred_results) != CLI_N:
-                        raise AssertionError(f"{argv[0]}: {len(out['evaluator'].pred_results)} results")
-                    metrics[argv[0]] = _check_metrics(argv[0], out["evaluator"])
-                else:
-                    stats = out["stage_stats"]
-                    log("  " + "; ".join(f"stage {s['stage']} accept {s['accepted_frac']:.3f}" for s in stats))
-                    if not bool(out["caches"].exists.all()) or not all(np.isfinite(s["select_after"]) for s in stats):
-                        raise AssertionError("train-mlp left samples uncached or non-finite")
-            written = sorted(os.listdir(os.path.join(work, "evaluate_results")))
-            if written != ["baseline", "mlp", "optimize"] or not (os.path.exists(pred) and os.path.exists(pgt)):
-                raise AssertionError(f"the command line wrote {written}")
+            train, counts["cli_train"], sec = _cli(
+                ["train-baseline", "--batchSize", "64", "--total_epoch", "1", "--save_epoch_freq", "1",
+                 "--use_random_flip", "--use_random_rescale", "--use_random_position"] + common)
         finally:
-            os.chdir(cwd)
+            del os.environ["IHMR_BN_IMPL"]
+        (epoch,) = train["epoch_stats"]
+        steps = epoch["steps"]
+        step_ms = epoch["step_seconds"] / steps * 1e3
+        log(f"  train-baseline: {sec:.3f}s wall; {steps} steps, TimeStat data {epoch['data_seconds']:.3f}s, "
+            f"forward {epoch['forward_seconds']:.3f}s -> {step_ms:.3f} ms/step, {64e3 / step_ms:.3f} images/sec "
+            f"(phase 5's replayed batch in this run: {replayed_ms_per_step:.3f} ms/step, "
+            f"{64e3 / replayed_ms_per_step:.3f} images/sec); total loss {epoch['total_loss']}; "
+            f"launches {counts['cli_train']}")
+        # 53 BatchNorms a step, each one K3 launch; collision loss off, no evaluation
+        check_counts("train-baseline", counts["cli_train"], exact_collision=0, nearest_centroid=0,
+                     bn_stats=53 * steps)
+        if steps != CLI_N // 64 or not np.isfinite(epoch["total_loss"]).all():
+            raise AssertionError(f"train-baseline ran {steps} steps, losses {epoch['total_loss']}")
+
+        commands = [
+            ("cli_test_baseline", ["test-baseline", "--batchSize", "64", "--export_pred", pred],
+             # one eval_step per batch: one exact pass (both directions in one launch), eval-mode BatchNorm
+             dict(exact_collision=CLI_N // 64, nearest_centroid=0, bn_stats=0)),
+            ("cli_optimize", ["optimize", "--pred_path", pred, "--batchSize", "128", "--stage_epochs", "20",
+                              "--export_pseudo_gt", pgt],
+             # one optimize_batch per batch, each ending in one exact pass
+             dict(exact_collision=CLI_N // 128, nearest_centroid=0, bn_stats=0)),
+            ("cli_train_mlp", ["train-mlp", "--pred_path", pred, "--use_opt_params", "--opt_params_path", pgt,
+                               "--batchSize", "128", "--stage_epochs", "2"],
+             # K2 once per train step (6 stages x 2 epochs x 2 batches); K1 in the warm pass and in each
+             # stage's selection pass, once per batch
+             dict(exact_collision=(1 + len(mlp_default)) * CLI_N // 128,
+                  nearest_centroid=len(mlp_default) * 2 * CLI_N // 128, bn_stats=0)),
+            ("cli_test_mlp", ["test-mlp", "--pred_path", pred, "--batchSize", "128"],
+             # the cascade per batch: the seed pass, one per stage and the final pass
+             dict(exact_collision=(len(mlp_default) + 2) * CLI_N // 128, nearest_centroid=0, bn_stats=0)),
+        ]
+        metrics = {}
+        for path, argv, expected in commands:
+            out, counts[path], sec = _cli(argv + common)
+            log(f"  {argv[0]}: {sec:.3f}s wall, {out['seconds']:.3f}s in its loops: data {out['data_seconds']:.3f}s, "
+                f"the rest (device work and its dispatch, the Evaluator) {out['forward_seconds']:.3f}s; "
+                f"launches {counts[path]} (expected {expected})")
+            check_counts(argv[0], counts[path], **expected)
+            if "evaluator" in out:
+                if len(out["evaluator"].pred_results) != CLI_N:
+                    raise AssertionError(f"{argv[0]}: {len(out['evaluator'].pred_results)} results")
+                metrics[argv[0]] = _check_metrics(argv[0], out["evaluator"])
+            else:
+                stats = out["stage_stats"]
+                log("  " + "; ".join(f"stage {s['stage']} accept {s['accepted_frac']:.3f}" for s in stats))
+                if not bool(out["caches"].exists.all()) or not all(np.isfinite(s["select_after"]) for s in stats):
+                    raise AssertionError("train-mlp left samples uncached or non-finite")
+        written = sorted(os.listdir(os.path.join(work, "evaluate_results")))
+        if written != ["baseline", "mlp", "optimize"] or not (os.path.exists(pred) and os.path.exists(pgt)):
+            raise AssertionError(f"the command line wrote {written}")
+    finally:
+        os.chdir(cwd)
     log("  metric_dict of the command line's evaluations: " + json.dumps(metrics))
-    return counts, step_ms
+    return counts, step_ms, metrics
+
+
+ENCODE_REPS = 20  # timed encodes of the 896x448 case
+RENDER_TIMEOUT = 600  # s: a forked render that has not finished by then fails the run (a hung worker)
+DISPLAY_FREQ = 8  # samples between training displays in phase 16
+
+
+def phase_jpeg_encoder(smi):
+    """Phase 14: the port's JPEG writer against cv2's bytes, by the committed
+    digests, and its host time per 896x448 encode (a render's size)."""
+    from ihmr_tpu_torch.data import image_cases, image_io
+
+    t0 = time.perf_counter()
+    written = image_cases.check_encoder()
+    log(f"JPEG writer: {len(written)} cases ({', '.join(f'{k} {v} B' for k, v in written.items())}) written as the "
+        f"bytes cv2.imencode writes (tests/data/jpeg/{image_cases.ENCODE_FILE}), in {time.perf_counter() - t0:.2f}s")
+    img = image_cases.encode_inputs()["ramps_896x448"]
+    log(f"  host ms per 896x448 encode (quality 95, 4:2:0): "
+        f"{_host_ms(lambda: image_io.encode_jpeg(img), ENCODE_REPS):.3f} (on this host, beside {smi})")
+
+
+class _Hang(BaseException):
+    """A block ran past its time limit. Not an ``Exception``: no handler in
+    the program under test (``render_results`` catches OSError and ValueError
+    to render serially) may take it for an error it can recover from."""
+
+
+@contextlib.contextmanager
+def _time_limit(seconds, what):
+    """Raise _Hang in the main thread when the block runs longer."""
+    def expire(signum, frame):
+        raise _Hang(f"{what} did not finish within {seconds} s")
+
+    old = signal.signal(signal.SIGALRM, expire)
+    signal.alarm(seconds)
+    try:
+        yield
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
+
+
+def _files(d):
+    return {n: open(os.path.join(d, n), "rb").read() for n in sorted(os.listdir(d))}
+
+
+_RENDER_PIDS = {"dir": None, "one": None}  # set before a render forks, inherited by its workers
+
+
+def _render_recording_pid(task):
+    """``evaluator._render_one_result`` that first leaves a file named by its
+    process id in ``_RENDER_PIDS["dir"]`` (module level: the pool pickles it
+    by name)."""
+    open(os.path.join(_RENDER_PIDS["dir"], str(os.getpid())), "a").close()
+    return _RENDER_PIDS["one"](task)
+
+
+@contextlib.contextmanager
+def _forked_render(pid_dir, what):
+    """Run the block with every render recorded by process id, then fail
+    unless the renders ran in forked workers alone: a pool refused at once,
+    or a worker's OSError / ValueError, sends ``render_results`` to its
+    serial path in this process, which must not pass for the forked one."""
+    from ihmr_tpu_torch.eval import evaluator as EV
+
+    os.makedirs(pid_dir)
+    _RENDER_PIDS.update(dir=pid_dir, one=EV._render_one_result)
+    EV._render_one_result = _render_recording_pid
+    try:
+        yield
+    finally:
+        EV._render_one_result = _RENDER_PIDS["one"]
+    pids = {int(n) for n in os.listdir(pid_dir)}
+    if not pids or os.getpid() in pids:
+        raise AssertionError(f"{what}: renders ran in processes {sorted(pids)}, the main process is {os.getpid()}: "
+                             f"the forked path did not carry them all")
+    log(f"  {what}: renders ran in {len(pids)} forked worker processes, none in the main process")
+
+
+def _corpus_flags(work, ckpt_dir):
+    return ["--data_root", os.path.join(work, "corpus"), "--anno_path", "anno.pkl", "--synthetic_mano",
+            "--checkpoints_dir", ckpt_dir, "--device", "cuda"]
+
+
+def phase_render(smi, work, ckpt_dir):
+    """Phase 15: test-baseline --visualize_eval on phase 7's corpus and
+    checkpoint (256 renders forked over 16 workers under a time limit), the
+    same results rendered serially, then visualize --limit 16 on its pkl."""
+    from ihmr_tpu_torch.data import image_io
+    from ihmr_tpu_torch.eval import evaluator as EV
+    from ihmr_tpu_torch.utils import io_utils
+
+    renders, inner = [], EV.Evaluator.render_results
+
+    def timed(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = inner(self, *args, **kwargs)
+        renders.append(time.perf_counter() - t0)
+        return out
+
+    pkl = os.path.join(work, "evaluate_results", "baseline", "hand26m.pkl")
+    cwd = os.getcwd()
+    os.chdir(work)
+    EV.Evaluator.render_results = timed
+    try:
+        with _forked_render(os.path.join(work, "pids_visualize_eval"), "test-baseline --visualize_eval"), \
+                _time_limit(RENDER_TIMEOUT, "test-baseline --visualize_eval"):
+            out, counts, seconds = _cli(["test-baseline", "--batchSize", "64", "--visualize_eval"]
+                                        + _corpus_flags(work, ckpt_dir))
+    finally:
+        EV.Evaluator.render_results = inner
+        os.chdir(cwd)
+    forked = _files(os.path.join(work, "evaluate_results", "baseline", "hand26m", "images"))
+    log(f"rendering: test-baseline --visualize_eval on phase 7's {CLI_N} files and checkpoint: {seconds:.3f}s wall, "
+        f"render {renders[0]:.3f}s for {len(forked)} results ({renders[0] / max(len(forked), 1) * 1e3:.3f} ms each, "
+        f"forked workers), launches {counts} (on {smi})")
+    check_counts("test-baseline --visualize_eval", counts, exact_collision=CLI_N // 64, nearest_centroid=0,
+                 bn_stats=0)
+    shapes = {image_io.decode_jpeg(data, name).shape for name, data in forked.items()}
+    if len(forked) != CLI_N or shapes != {(896, 448, 3)}:
+        raise AssertionError(f"--visualize_eval wrote {len(forked)} files of shapes {shapes}")
+    _check_metrics("test-baseline --visualize_eval", out["evaluator"])
+
+    evaluator = io_utils.load_pkl(pkl)
+    t0 = time.perf_counter()
+    evaluator.render_results(os.path.join(work, "render_serial"), num_workers=1)
+    serial_s = time.perf_counter() - t0
+    serial = _files(os.path.join(work, "render_serial"))
+    differ = [n for n in forked if serial.get(n) != forked[n]]
+    log(f"  the same results rendered one after another: {serial_s:.3f}s ({serial_s / CLI_N * 1e3:.3f} ms each); "
+        f"{CLI_N - len(differ)} of {CLI_N} files byte-equal to the forked ones (on {smi})")
+    if differ or len(serial) != CLI_N:
+        raise AssertionError(f"serial and forked renders differ: {differ[:4]}")
+
+    vis_dir = os.path.join(work, "visualize16")
+    with _forked_render(os.path.join(work, "pids_visualize"), "visualize"), _time_limit(RENDER_TIMEOUT, "visualize"):
+        out_v, counts_v, seconds_v = _cli(["visualize", "--results", pkl, "--limit", "16", "--out_dir", vis_dir])
+    objs, imgs = _files(os.path.join(vis_dir, "objs")), _files(os.path.join(vis_dir, "images"))
+    log(f"  visualize --limit 16: {seconds_v:.3f}s, {len(objs)} .obj and {len(imgs)} .jpg files, launches {counts_v} "
+        f"(on {smi})")
+    check_counts("visualize", counts_v, exact_collision=0, nearest_centroid=0, bn_stats=0)
+    if len(objs) != 16 or len(imgs) != 16 or any(forked.get(n) != data for n, data in imgs.items()):
+        raise AssertionError("visualize did not write the 16 files test-baseline --visualize_eval rendered")
+    return {"cli_visualize_eval": counts, "cli_visualize": counts_v}
+
+
+def _http_get(port, path):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+        return r.status, r.headers["Content-Type"], r.read()
+
+
+def phase_display(smi, work):
+    """Phase 16: train-baseline --display_freq 8 --live_port 0 for one epoch
+    of phase 7's corpus (checkpoints in a directory of their own): the
+    gallery, its index.html, the loss curves' line and the live monitor
+    over HTTP; K1 once per display."""
+    ckpt = os.path.join(work, "ckpt_display")
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        out, counts, seconds = _cli(["train-baseline", "--batchSize", "64", "--total_epoch", "1", "--display_freq",
+                                     str(DISPLAY_FREQ), "--live_port", "0"] + _corpus_flags(work, ckpt))
+    finally:
+        os.chdir(cwd)
+    vis = out["visualizer"]
+    try:
+        (epoch,) = out["epoch_stats"]
+        displays = len(vis._gallery)
+        files = sorted(os.listdir(vis.img_dir))
+        html = open(os.path.join(vis.web_dir, "index.html")).read()
+        log(f"training visuals: train-baseline --display_freq {DISPLAY_FREQ} --live_port 0, {epoch['steps']} steps "
+            f"of 64: {seconds:.3f}s wall, steps {epoch['step_seconds']:.3f}s, the rest (displays, checkpoint) "
+            f"{seconds - epoch['step_seconds']:.3f}s; {displays} displays, {len(files)} PNG panels, launches {counts} "
+            f"(on {smi})")
+        if displays != epoch["steps"] or len(files) != 5 * displays or not all(f'src="images/{f}"' in html for f in files):
+            raise AssertionError(f"{displays} displays, {len(files)} panels, index.html lists "
+                                 f"{sum(f in html for f in files)}")
+        curves = os.path.join(vis.web_dir, "loss_curves.png")
+        if vis.curves_skipped is not None:
+            log(f"  loss curves skipped on this machine: {vis.curves_skipped}")
+        elif not os.path.exists(curves):
+            raise AssertionError("loss curves neither drawn nor skipped")
+        else:
+            log("  loss curves drawn (matplotlib present)")
+        port = vis.dashboard.port
+        page, losses, image = (_http_get(port, p) for p in ("/", "/losses.json", f"/images/{files[0]}"))
+        series = json.loads(losses[2])["series"]
+        log(f"  live monitor on port {port}: / {page[0]} {page[1]} {len(page[2])} B; /losses.json {losses[0]} with "
+            f"{ {k: len(v) for k, v in series.items()} } points; /images/{files[0]} {image[0]} {len(image[2])} B "
+            f"(on {smi})")
+        want = open(os.path.join(vis.img_dir, files[0]), "rb").read()
+        if (page[0], losses[0], image[0]) != (200, 200, 200) or b"live training monitor" not in page[2] \
+                or len(series.get("total_loss", [])) != displays or image[2] != want:
+            raise AssertionError("the live monitor did not serve the run's page, losses and panels")
+    finally:
+        vis.dashboard.stop()
+    check_counts("train-baseline --display_freq", counts, exact_collision=displays, nearest_centroid=0, bn_stats=0)
+    return {"cli_display": counts}
+
+
+_RANK_WORKER = r"""
+import json, os, sys, time
+repo, work, port, rank, argv = sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4]), json.loads(sys.argv[5])
+sys.path.insert(0, repo)
+os.makedirs(os.path.join(work, f"rank{rank}"), exist_ok=True)
+os.chdir(os.path.join(work, f"rank{rank}"))  # each rank writes its own evaluate_results/
+import torch
+from ihmr_tpu_torch import cli
+from ihmr_tpu_torch.ops import bn_stats, exact_collision, nearest_centroid
+from ihmr_tpu_torch.parallel import dist
+from ihmr_tpu_torch.train import loops
+
+seen, inner = [], loops._to_baseline_batch
+def recording(raw, device=None):
+    seen.extend(int(i) for i in raw["index"])
+    return inner(raw, device)
+loops._to_baseline_batch = recording
+t0 = time.perf_counter()
+out = cli.main(argv + ["--rank", str(rank), "--world_size", "2"])
+torch.cuda.synchronize()
+seconds = time.perf_counter() - t0
+r, w = dist.initialize(f"127.0.0.1:{port}", num_processes=2, process_id=rank)
+t1 = time.perf_counter()
+merged = dist.gather_evaluators(out["evaluator"], os.path.join(work, "gather"), "test_baseline", r, w)
+report = dict(rank=r, world=w, indices=seen, seconds=seconds, gather_seconds=time.perf_counter() - t1,
+              launches=dict(exact_collision=exact_collision.launch_count, nearest_centroid=nearest_centroid.launch_count,
+                            bn_stats=bn_stats.launch_count))
+if r == 0:
+    report["merged"] = dict(n=len(merged.pred_results), unique=len({p["img_path_relative"] for p in merged.pred_results}),
+                            metrics=dict(merged.metric_dict()))
+dist.barrier("done")
+print("RESULT " + json.dumps(report), flush=True)
+"""
+
+
+def phase_two_processes(smi, work, ckpt_dir, single_md):
+    """Phase 17: test-baseline --rank r --world_size 2 in two processes on
+    the one card, then a gloo rendezvous through parallel.dist and rank 0's
+    gather_evaluators; the merged metric_dict against phase 7's
+    single-process one."""
+    import socket
+
+    from ihmr_tpu_torch.pipeline import SHORT_EVAL_RTOL
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    argv = ["test-baseline", "--batchSize", "64"] + _corpus_flags(work, ckpt_dir)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", _RANK_WORKER, repo, work, str(port), str(rank), json.dumps(argv)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for rank in range(2)]
+    try:
+        outs = [p.communicate(timeout=900) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.perf_counter() - t0
+    reports = []
+    for p, (out, err) in zip(procs, outs):
+        lines = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
+        if p.returncode != 0 or not lines:
+            raise AssertionError(f"a rank failed (exit {p.returncode}):\n{out[-2000:]}\n{err[-4000:]}")
+        reports.append(json.loads(lines[-1][len("RESULT "):]))
+    shards = [set(r["indices"]) for r in reports]
+    merged = reports[0]["merged"]
+    gaps = {k: abs(merged["metrics"][k] - v) / max(abs(v), 1e-12) for k, v in single_md.items()}
+    log(f"two processes on the one card: test-baseline --rank r --world_size 2, {wall:.3f}s wall for both (ranks "
+        f"{reports[0]['seconds']:.3f}s / {reports[1]['seconds']:.3f}s in cli.main, each process's start included in "
+        f"the wall time), shards of {len(shards[0])} and {len(shards[1])} samples, gloo gather "
+        f"{reports[0]['gather_seconds']:.3f}s; rank 0 merged {merged['n']} results; metric_dict "
+        + ", ".join(f"{k} {merged['metrics'][k]:.6f} vs {v:.6f}" for k, v in single_md.items())
+        + f"; largest relative gap {max(gaps.values()):.3e} (tol {SHORT_EVAL_RTOL}; on {smi})")
+    if shards[0] & shards[1] or shards[0] | shards[1] != set(range(CLI_N)) or merged["unique"] != CLI_N:
+        raise AssertionError("the two ranks' shards overlap or do not cover the corpus")
+    if set(merged["metrics"]) != set(single_md) or max(gaps.values()) > SHORT_EVAL_RTOL:
+        raise AssertionError("the gathered metrics differ from the single process's")
+    for r in reports:
+        check_counts(f"rank {r['rank']}", r["launches"], exact_collision=CLI_N // 128, nearest_centroid=0, bn_stats=0)
+    return {"cli_two_process": {k: sum(r["launches"][k] for r in reports) for k in reports[0]["launches"]}}
 
 
 def _host_ms(fn, reps):
@@ -1370,6 +1685,55 @@ def phase_collision_modes(dev, smi):
     return counts
 
 
+TWO_LEVEL_GROUP = 8  # faces a cluster in phase 18 (the JAX package's default cluster_group)
+
+
+def phase_two_level(dev, smi):
+    """Phase 18: the 2-level hierarchy in the loop (loop_collision_cluster=8)
+    and the merged payload builder (IHMR_PAYLOAD_FUSED's switch), each in
+    turns with the default engine, at phase 13's shape."""
+    from ihmr_tpu_torch.data import make_opt_inputs
+    from ihmr_tpu_torch.mano import synthetic_mano_model
+    from ihmr_tpu_torch.refine import OptConfig
+    from ihmr_tpu_torch.refine import opt_engine as TE
+
+    log(f"2-level hierarchy and merged payload builder: opt_default cut to epoch {COLLISION_EPOCH}, B={COLLISION_BATCH}, "
+        f"each in turns with the default engine (on {smi})")
+    mano = synthetic_mano_model(device=dev)
+    params, batch = make_opt_inputs(mano, batch=COLLISION_BATCH, seed=0)
+    configs = {"default": OptConfig(save_mid_freq=10),
+               "two_level": OptConfig(save_mid_freq=10, loop_collision_cluster=TWO_LEVEL_GROUP),
+               "fused_payload": OptConfig(save_mid_freq=10)}
+    switch, builder = TE._PAYLOAD_FUSED, TE.pair_select_tris
+    calls = []
+
+    def counting(*args):
+        calls.append(args[0].shape[0])
+        return builder(*args)
+
+    counts, rates, colls, peaks = {}, {}, {}, {}
+    for name in ("default", "two_level", "two_level", "default", "default", "fused_payload", "fused_payload", "default"):
+        TE._PAYLOAD_FUSED = name == "fused_payload"
+        TE.pair_select_tris = counting
+        try:
+            _, res, c, rate, peak = _opt_run(mano, params, batch, configs[name], smi, f"{name} (in turns)")
+        finally:
+            TE._PAYLOAD_FUSED, TE.pair_select_tris = switch, builder
+        check_counts(name, c, exact_collision=1, nearest_centroid=0, bn_stats=0)
+        rates.setdefault(name, []).append(rate)
+        colls.setdefault(name, []).append(float(res["collision_loss"].mean()))
+        peaks[name] = max(peaks.get(name, 0.0), peak)
+        counts[f"coll_{name}"] = c
+    log("  in turns, hands/sec: " + ", ".join(f"{n} " + " / ".join(f"{r:.3f}" for r in v) for n, v in rates.items())
+        + "; peak GiB " + ", ".join(f"{n} {v:.3f}" for n, v in peaks.items())
+        + "; final mean exact collision " + ", ".join(f"{n} {v[0]:.5f}" for n, v in colls.items()) + f" (on {smi})")
+    if not calls:
+        raise AssertionError("the merged payload builder never ran")
+    log(f"  merged builder calls in the two fused runs: {len(calls)}")
+    del counts["coll_default"]
+    return counts
+
+
 def phase_small_collision(dev, smi):
     """The in-loop collision paths at small size, card against CPU."""
     from ihmr_tpu_torch.pipeline import SHORT_COLLISION_TOL, run_short_collision_paths, short_collision_gaps
@@ -1646,13 +2010,18 @@ def main():
     opt_eval_counts, opt_eval_md = phase_opt_eval(dev)
     log("metric_dict of the three evaluation loops: " + json.dumps(
         {"optimize_loop": opt_eval_md, "test_baseline_loop": train["baseline_md"], "test_mlp_loop": mlp_md}))
-    with tempfile.TemporaryDirectory() as ckpt_dir:
-        cli_counts, png_ms_per_step = phase_cli_chain(dev, train["ms_per_step"], ckpt_dir)
+    phase_jpeg_encoder(smi)
+    with tempfile.TemporaryDirectory() as ckpt_dir, tempfile.TemporaryDirectory() as work:
+        cli_counts, png_ms_per_step, cli_metrics = phase_cli_chain(dev, train["ms_per_step"], ckpt_dir, work)
+        cli_counts.update(phase_render(smi, work, ckpt_dir))
+        cli_counts.update(phase_display(smi, work))
+        cli_counts.update(phase_two_processes(smi, work, ckpt_dir, cli_metrics["test-baseline"]))
         cli_counts.update(phase_cli_jpeg(dev, smi, train["ms_per_step"], png_ms_per_step))
         serve = phase_serve(dev, ckpt_dir)
     tracker_counts, _tracked_per_sec = phase_tracker(dev)
     train_bf16 = phase_train_bf16(dev, train["ms_per_step"])
     collision_counts = phase_collision_modes(dev, smi)
+    collision_counts.update(phase_two_level(dev, smi))
     collision_counts.update(phase_cli_collision(dev, smi))
     phase_cli_small(dev)
     phase_small_input(dev)
@@ -1672,7 +2041,9 @@ def main():
     # the two on JPEG files with every augmentation; serve, serve_bf16: each
     # server from its start to its last response; tracker: the 8 timed
     # frames; train_bf16: the 20 bf16 train steps; coll_*: each run of phase
-    # 13, cli_escalate / cli_grid its two commands). K1's and
+    # 13 and 18, cli_escalate / cli_grid phase 13's two commands;
+    # cli_visualize_eval, cli_visualize, cli_display: phases 15-16;
+    # cli_two_process: the two ranks of phase 17, counted in each). K1's and
     # K2's times are one launch at the main path's shape; K3's are the sum
     # over the 53 launches of one train step ("ms_basis"), fp32 and (the
     # "_bf16" keys) bf16. "ms" is device time alone.

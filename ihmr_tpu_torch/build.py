@@ -9,9 +9,10 @@ first use (``load_library``) or up front for every source in parallel
 
 The host sources (``csrc/data_kernels.cpp``: the letterbox and the PNG row
 filters; ``csrc/image_ops.cpp``: OpenCV's warp, HSV conversions and
-``filter2D``; ``csrc/jpeg_decode.cpp``: the JPEG decoder) are compiled by
-``g++`` at first use (``load_host_library``), the first with the JAX
-package's flags (``-march=native``), the other two also with
+``filter2D``; ``csrc/jpeg_decode.cpp`` and ``csrc/jpeg_encode.cpp``: the
+JPEG decoder and encoder) are compiled by ``g++`` at first use
+(``load_host_library``), the first with the JAX package's flags
+(``-march=native``), the others also with
 ``-ffp-contract=off`` so that no multiply-add is fused unless the source
 asks for it and their bytes are the same on every host. A host library's
 name also hashes the host CPU's identity, so a build directory copied to
@@ -53,10 +54,11 @@ HOST_SOURCES: Dict[str, str] = {
     "data_kernels": "csrc/data_kernels.cpp",
     "image_ops": "csrc/image_ops.cpp",
     "jpeg_decode": "csrc/jpeg_decode.cpp",
+    "jpeg_encode": "csrc/jpeg_encode.cpp",
 }
 GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17", "-pthread"]
 # host sources whose arithmetic must not depend on the compiler's choice to fuse
-NO_CONTRACTION = ("image_ops", "jpeg_decode")
+NO_CONTRACTION = ("image_ops", "jpeg_decode", "jpeg_encode")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _functions: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}

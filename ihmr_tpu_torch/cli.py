@@ -6,6 +6,7 @@
     python -m ihmr_tpu_torch.cli train-mlp      --pred_path pred.pkl --use_opt_params --opt_params_path pgt.pkl
     python -m ihmr_tpu_torch.cli test-mlp       --pred_path pred.pkl
     python -m ihmr_tpu_torch.cli serve          --test_epoch latest --port 8080 [--bf16]
+    python -m ihmr_tpu_torch.cli visualize      --results evaluate_results/baseline/<dataset>.pkl
 
 The JAX package's subcommands and flags with the same defaults and the same
 outputs: ``evaluate_results/<command>/<dataset>.pkl`` (the pickled
@@ -22,12 +23,25 @@ names a directory with ``MANO_RIGHT.pkl``, ``MANO_LEFT.pkl`` and,
 optionally, ``mean_mano_params.pkl`` (without it, or with
 ``--synthetic_mano``, the synthetic hand).
 
+``visualize`` renders a saved Evaluator pkl of the port (``.jpg`` per
+result, ``utils/vis.py``) and writes its meshes as ``.obj``, on the host;
+``test-baseline --visualize_eval`` renders its results the same way, and
+``train-baseline --display_freq N`` writes training panels every N samples
+under ``<checkpoints_dir>/web`` (``--live_port P``: the live monitor of
+``utils/live_dashboard.py`` on port P, 0 = a free one), on rank 0 only.
+
+Several processes (``--rank r --world_size n``, one process per rank):
+each reads its rank's shard of the dataset (padded to ``batchSize *
+world_size``, as the JAX package pads), only rank 0 writes checkpoints and
+visuals, and every rank writes its own evaluation pkl; the command line
+starts no process group, as the JAX one does not (``parallel/dist.py``
+gathers results over gloo).
+
 One flag is new: ``--device`` (default ``cuda``; ``cpu`` runs on the CPU,
 the kernels through their plain versions). Train-mode BatchNorm statistics
 follow ``IHMR_BN_IMPL`` as in the JAX package (``stock``, ``fused``, or
 ``pallas``: the kernel K3). The JAX package's XLA compile cache and
-backend probe have no counterpart. ``visualize`` and the flags whose paths
-are not ported yet raise, naming their ROADMAP.md item.
+backend probe have no counterpart.
 
 ``main(argv)`` returns the command's summary (a dict: ``seconds``,
 ``data_seconds``, ``forward_seconds`` and the command's Evaluator,
@@ -47,27 +61,6 @@ import time
 from typing import Dict, List, Optional
 
 import numpy as np
-
-# what each refused subcommand or flag waits for: its ROADMAP.md item
-_ROADMAP = {
-    "utils": "ROADMAP.md Queue 1, item 2 (utils/: rendering, the visualizer and the live monitor)",
-    "multicard": "ROADMAP.md Queue 1, the slice with more than one card (parallel/, --rank/--world_size)",
-}
-
-
-def _refuse(what: str, key: str):
-    raise NotImplementedError(f"{what} is not ported yet: {_ROADMAP[key]}")
-
-
-def _check_flags(args) -> None:
-    """Raise on every flag whose path the port does not have yet."""
-    if getattr(args, "rank", 0) > 0 or getattr(args, "world_size", 1) > 1:
-        _refuse("--rank > 0 / --world_size > 1", "multicard")
-    if getattr(args, "display_freq", 0) > 0 or getattr(args, "live_port", -1) >= 0:
-        _refuse("--display_freq > 0 / --live_port >= 0", "utils")
-    if getattr(args, "visualize_eval", False):
-        _refuse("--visualize_eval", "utils")
-
 
 def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--data_root", default="")
@@ -214,16 +207,22 @@ def cmd_train_baseline(args):
         backbone = encoder.main_encoder
         backbone.load_state_dict(ckpt.import_torch_resnet(args.pretrain_weights, backbone.state_dict()))
         print(f"Loaded pretrained backbone from {args.pretrain_weights}")
+    visualizer = None
+    if args.rank <= 0 and (args.display_freq > 0 or args.live_port >= 0):
+        from ihmr_tpu_torch.utils.visualizer import Visualizer
+
+        visualizer = Visualizer(args.checkpoints_dir, live_port=args.live_port)
     epoch_stats: List[Dict] = []
     t0 = time.perf_counter()
     state = train_baseline_loop(
         state, loader, mano_right, mano_left, config, args.checkpoints_dir, start_epoch=start_epoch,
         print_freq=args.print_freq, save_epoch_freq=args.save_epoch_freq, is_main=args.rank <= 0,
-        epoch_stats=epoch_stats,
+        epoch_stats=epoch_stats, visualizer=visualizer, display_freq=args.display_freq,
     )
     seconds = time.perf_counter() - t0
     data = sum(e["data_seconds"] for e in epoch_stats)
-    return dict(_summary(seconds, data), state=state, epoch_stats=epoch_stats,
+    # the live monitor (visualizer.dashboard) keeps serving until its stop()
+    return dict(_summary(seconds, data), state=state, epoch_stats=epoch_stats, visualizer=visualizer,
                 step_forward_seconds=sum(e["forward_seconds"] for e in epoch_stats))
 
 
@@ -250,6 +249,8 @@ def cmd_test_baseline(args):
     evaluator = test_baseline_loop(state, loader, dataset, mano_right, mano_left, config)
     seconds = time.perf_counter() - t0
     _save_evaluator(evaluator, "baseline", dataset)
+    if args.visualize_eval:
+        evaluator.render_results(osp.join("evaluate_results", "baseline", dataset.name, "images"))
     if args.export_pred:
         # the prediction pkl read by `optimize` / `train-mlp` (--pred_path)
         from ihmr_tpu_torch.eval.export import evaluator_to_prediction_pkl
@@ -370,7 +371,23 @@ def cmd_test_mlp(args):
 
 
 def cmd_visualize(args):
-    _refuse("the visualize command (mesh rendering)", "utils")
+    """Render every prediction of a saved Evaluator pkl to jpg + obj, on the
+    host: ``<out_dir>/objs`` and ``<out_dir>/images`` (default: the pkl's
+    path without its extension)."""
+    from ihmr_tpu_torch.utils import io_utils
+
+    evaluator = io_utils.load_pkl(args.results)
+    base = args.out_dir or osp.join(osp.dirname(args.results), osp.basename(args.results).rsplit(".", 1)[0])
+    obj_dir = osp.join(base, "objs")
+    img_dir = osp.join(base, "images")
+    io_utils.build_dir(obj_dir)
+    io_utils.build_dir(img_dir)
+    t0 = time.perf_counter()
+    evaluator.export_objs(obj_dir, limit=args.limit)
+    evaluator.render_results(img_dir, limit=args.limit)
+    n = min(len(evaluator.pred_results), args.limit or 10**9)
+    print(f"wrote {n} objs to {obj_dir} and {n} renders to {img_dir}")
+    return dict(seconds=time.perf_counter() - t0, obj_dir=obj_dir, img_dir=img_dir)
 
 
 def build_predict(args):
@@ -439,8 +456,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lr_decay_type", choices=["none", "stage", "cosine"], default="cosine")
     p.add_argument("--total_epoch", type=int, default=20)
     p.add_argument("--print_freq", type=int, default=2048)
-    p.add_argument("--display_freq", type=int, default=0, help="not ported yet (raises when > 0)")
-    p.add_argument("--live_port", type=int, default=-1, help="not ported yet (raises when >= 0)")
+    p.add_argument("--display_freq", type=int, default=0,
+                   help="render training visuals every N samples (rank 0)")
+    p.add_argument("--live_port", type=int, default=-1,
+                   help=">=0: serve the live loss/visuals monitor on this port (0 = a free one; rank 0)")
     p.add_argument("--save_epoch_freq", type=int, default=5)
     p.add_argument("--use_collision_loss", action="store_true")
     p.add_argument("--use_hand_rotation", action="store_true",
@@ -459,7 +478,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("test-baseline")
     _add_common(p)
     p.add_argument("--test_epoch", default="latest")
-    p.add_argument("--visualize_eval", action="store_true", help="not ported yet (raises)")
+    p.add_argument("--visualize_eval", action="store_true", help="render predictions to jpg after evaluation")
     p.add_argument("--export_pred", default="",
                    help="write the prediction pkl consumed by optimize/train-mlp")
     p.set_defaults(func=cmd_test_baseline)
@@ -508,7 +527,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--test_epoch", default="latest")
     p.set_defaults(func=cmd_test_mlp, strategy="mlp_default")
 
-    p = sub.add_parser("visualize", help="not ported yet (raises)")
+    p = sub.add_parser("visualize", help="render a saved Evaluator pkl to jpg + obj")
     p.add_argument("--results", required=True)
     p.add_argument("--out_dir", default=None)
     p.add_argument("--limit", type=int, default=None)
@@ -525,10 +544,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
-    """Parse ``argv``; raise on a flag whose path is not ported yet."""
-    args = build_parser().parse_args(argv)
-    _check_flags(args)
-    return args
+    return build_parser().parse_args(argv)
 
 
 def main(argv: Optional[List[str]] = None) -> Dict:

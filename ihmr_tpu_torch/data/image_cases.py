@@ -9,6 +9,12 @@ own code, on a machine with or without cv2, and raises on the first result
 that is not cv2's: decode, warp, HSV conversions and colour jitter byte for
 byte; filter2D within ``FILTER2D_MAX_DIFF`` on at most ``FILTER2D_MAX_SHARE``
 of the values (cv2 sums large kernels through a DFT).
+
+``encode_expected.json`` holds the SHA-256 of the bytes ``cv2.imencode(".jpg")``
+writes for ``encode_inputs()`` (seeded noise and smooth ramps at the
+``ENCODE_SIZES``; written by ``tests/data/jpeg/make_encode_digests.py``);
+``check_encoder`` encodes the same images with the port's writer and
+raises on the first whose bytes differ.
 """
 
 from __future__ import annotations
@@ -23,6 +29,10 @@ import numpy as np
 
 FIXTURE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
                            "tests", "data", "jpeg")
+ENCODE_FILE = "encode_expected.json"
+# (height, width) of the encoder's cases: one pixel, partial MCUs on either
+# side, one whole MCU, a wide odd one, the encoder's input and the renders' size
+ENCODE_SIZES = ((1, 1), (7, 9), (15, 17), (16, 16), (33, 65), (224, 224), (896, 448))
 FILTER2D_MAX_DIFF = 1
 FILTER2D_MAX_SHARE = 1e-4
 
@@ -89,3 +99,37 @@ def check_fixtures(fixture_dir: str = FIXTURE_DIR) -> Dict[str, object]:
                                  f"{(diff > 0).mean():.2e} of the values differ (bound {FILTER2D_MAX_DIFF} on "
                                  f"{FILTER2D_MAX_SHARE})")
     return {"decoded": decoded, "filter2d": blur, "cases": len(results) + len(blur)}
+
+
+def encode_inputs() -> Dict[str, np.ndarray]:
+    """{name: BGR uint8 image} for each of ``ENCODE_SIZES``: uniform noise
+    (``noise_HxW``) and smooth ramps with a little noise (``ramps_HxW``),
+    from ``np.random.RandomState(i)`` and integer arithmetic only, so every
+    host makes the same images."""
+    out = {}
+    for i, (h, w) in enumerate(ENCODE_SIZES):
+        rng = np.random.RandomState(i)
+        out[f"noise_{h}x{w}"] = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+        yy, xx = np.mgrid[0:h, 0:w]
+        ramps = np.stack([xx * 255 // max(w - 1, 1), yy * 255 // max(h - 1, 1), (xx + 2 * yy) % 256], -1)
+        out[f"ramps_{h}x{w}"] = np.clip(ramps + rng.randint(-4, 5, (h, w, 3)), 0, 255).astype(np.uint8)
+    return out
+
+
+def check_encoder(fixture_dir: str = FIXTURE_DIR) -> Dict[str, int]:
+    """Encode every ``encode_inputs()`` image with the port's JPEG writer;
+    raises AssertionError naming the first whose bytes are not cv2's (by
+    the committed digests). Returns {name: bytes written}."""
+    from ihmr_tpu_torch.data.image_io import encode_jpeg
+
+    with open(os.path.join(fixture_dir, ENCODE_FILE)) as f:
+        expected = json.load(f)
+    written = {}
+    for name, img in encode_inputs().items():
+        data = encode_jpeg(img)
+        if hashlib.sha256(data).hexdigest() != expected[name]:
+            raise AssertionError(f"{name}: the JPEG bytes are not those cv2.imencode writes")
+        written[name] = len(data)
+    if sorted(written) != sorted(expected):
+        raise AssertionError(f"encode cases {sorted(written)} against digests of {sorted(expected)}")
+    return written

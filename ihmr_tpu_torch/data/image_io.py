@@ -22,7 +22,10 @@ byte for byte, from the port's own decoders:
 Nothing falls back to another decoder.
 
 ``imwrite_png`` writes an RGB PNG from a BGR array (row filters cycling
-through all five types unless others are given). ``resize_linear`` computes
+through all five types unless others are given). ``encode_jpeg`` /
+``imwrite_jpeg`` write the bytes ``cv2.imencode(".jpg")`` / ``cv2.imwrite``
+write for a BGR array with their defaults (quality 95, 4:2:0, libjpeg-turbo's
+islow DCT and standard tables; ``csrc/jpeg_encode.cpp``). ``resize_linear`` computes
 ``cv2.resize(img, (w, h))`` (INTER_LINEAR) on uint8 images bit for bit.
 """
 
@@ -360,6 +363,24 @@ def imwrite_png(path: str, img: np.ndarray, filters: Optional[Sequence[int]] = N
     )
     with open(path, "wb") as f:
         f.write(png)
+
+
+def encode_jpeg(img: np.ndarray, quality: int = 95) -> bytes:
+    """A BGR HWC uint8 image -> the JPEG bytes ``cv2.imencode(".jpg", img)``
+    returns (baseline, 4:2:0, ``quality`` as IMWRITE_JPEG_QUALITY)."""
+    from ihmr_tpu_torch.data.native import jpeg_encode_bgr
+
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"encode_jpeg takes uint8 (H, W, 3) BGR images, got {img.dtype} {img.shape}")
+    return jpeg_encode_bgr(img, quality)
+
+
+def imwrite_jpeg(path: str, img: np.ndarray, quality: int = 95) -> None:
+    """Write a BGR HWC uint8 image as the JPEG file ``cv2.imwrite(path, img)`` writes."""
+    data = encode_jpeg(img, quality)
+    with open(path, "wb") as f:
+        f.write(data)
 
 
 _COEF_SCALE = 2048  # OpenCV's INTER_RESIZE_COEF_SCALE (11 bits)

@@ -3,7 +3,8 @@
 ``csrc/data_kernels.cpp`` (letterbox, PNG row filters, resize),
 ``csrc/image_ops.cpp`` (OpenCV's warp, HSV conversions and filter2D, called
 by ``cv_ops.py``) and ``csrc/jpeg_decode.cpp`` (the JPEG decoder's entropy
-decoding and pixel stages, called by ``image_io.py``) are compiled by g++ at
+decoding and pixel stages, called by ``image_io.py``) and
+``csrc/jpeg_encode.cpp`` (the JPEG encoder) are compiled by g++ at
 first use (``build.load_host_library``). Where the JAX package falls back to
 its NumPy/cv2 path when the build fails, the port raises: every caller here
 is on the data path and must get the native result. ctypes releases the GIL
@@ -40,6 +41,7 @@ _SIGNATURES = {
     "filter2d_u8": ("image_ops", None, [_U8P, _I, _I, _I, _F32P, _I, _I, _U8P]),
     "jpeg_decode_scan": ("jpeg_decode", _L, [_U8P, _L, _L, _I, _I32P, _I64P, _U8P, _I, _I, _I, _I16P]),
     "jpeg_finish": ("jpeg_decode", _I, [_I16P, _I, _I32P, _I64P, _U16P, _I, _I, _I, _I, _U8P]),
+    "jpeg_encode_bgr": ("jpeg_encode", _L, [_U8P, _I, _I, _I, _U8P, _L]),
 }
 _functions = {}
 
@@ -181,3 +183,18 @@ def jpeg_finish(coefs: np.ndarray, comps: np.ndarray, offsets: np.ndarray, quant
         coefs.ctypes.data_as(_I16P), n, comps.ctypes.data_as(_I32P), offsets.ctypes.data_as(_I64P),
         quant.ctypes.data_as(_U16P), width, height, hmax, vmax, _u8ptr(out),
     )
+
+
+def jpeg_encode_bgr(img: np.ndarray, quality: int) -> bytes:
+    """A BGR HWC uint8 image -> the bytes of a baseline 4:2:0 JPEG at
+    ``quality`` (``csrc/jpeg_encode.cpp``: what cv2.imencode(".jpg") writes)."""
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim != 3 or img.shape[2] != 3 or min(img.shape[:2]) < 1 or max(img.shape[:2]) > 65535:
+        raise ValueError(f"jpeg_encode_bgr takes a (H, W, 3) uint8 image of 1..65535 per side, got {img.shape}")
+    h, w = img.shape[:2]
+    # generous for any content: whole MCUs at 16 bytes a pixel, plus the headers
+    out = np.empty(1024 + 16 * (-(-h // 16) * 16) * (-(-w // 16) * 16), np.uint8)
+    n = function("jpeg_encode_bgr")(_u8ptr(img), h, w, int(quality), _u8ptr(out), out.size)
+    if n <= 0:
+        raise RuntimeError(f"jpeg_encode_bgr: {-n} bytes needed, {out.size} given")
+    return out[:n].tobytes()

@@ -13,7 +13,9 @@ so both Evaluators give the same entries and metrics for the same results.
 Ranks merge their Evaluators with ``gather_pred`` (each pickles its
 ``pred_results``), as in the reference.
 
-Not ported yet: ``render_results`` (needs the ``utils/`` renderer).
+``render_results`` draws each result's meshes over its source image and
+writes a ``.jpg`` (the port's JPEG writer: the bytes the JAX package's
+``cv2.imwrite`` writes); ``export_objs`` writes ``.obj`` meshes.
 """
 
 from __future__ import annotations
@@ -242,10 +244,42 @@ class Evaluator:
     # ------------------------------------------------------------------
     def render_results(self, res_vis_dir: str, limit: Optional[int] = None, size_type: str = "double",
                        num_workers: int = 16):
-        raise NotImplementedError(
-            "Evaluator.render_results needs the mesh renderer of the utils/ slice (ihmr_tpu/utils/vis.py), "
-            "which is not ported yet; export_objs writes the meshes"
-        )
+        """Render the predicted meshes over the source images to ``.jpg``
+        files of shape (2 size, size, 3), size = 2 input_size ("double"),
+        else input_size: the letterboxed source above the render (a blank
+        canvas where the source file is missing), named by the result's
+        relative image path.
+
+        With more than 8 results and ``num_workers`` > 1 the renders fan out
+        over ``num_workers`` forked processes, as the reference's 16-way
+        render; where the system refuses the pool (OSError, ValueError) they
+        run here, one after another. A worker gets the entries ``update``
+        stored (numpy arrays and strings) and runs numpy and the port's host
+        libraries (decode, resize, encode: ctypes, no threads alive between
+        calls), never a torch op, so a fork after CUDA and torch's thread
+        pool have started is safe."""
+        io_utils.build_dir(res_vis_dir)
+        size = self.input_size * 2 if size_type == "double" else self.input_size
+        results = [r for r in self.pred_results[:limit] if "pred_right_hand_verts" in r]
+        tasks = [(r, self.right_faces, self.left_faces, size, res_vis_dir) for r in results]
+        if num_workers > 1 and len(tasks) > 8:
+            import multiprocessing as mp
+
+            from ihmr_tpu_torch.data import native
+
+            # build and load the host libraries here, so that the workers
+            # inherit them instead of each compiling its own
+            native.function("jpeg_encode_bgr")
+            native.function("resize_linear_u8")
+            native.function("jpeg_finish")
+            try:
+                with mp.get_context("fork").Pool(processes=num_workers) as pool:
+                    pool.map(_render_one_result, tasks, chunksize=4)
+                return
+            except (OSError, ValueError):
+                pass  # restricted environments: fall through to serial
+        for task in tasks:
+            _render_one_result(task)
 
     def export_objs(self, res_obj_dir: str, limit: Optional[int] = None):
         """Dump the predicted two-hand meshes as .obj files, one per result."""
@@ -278,3 +312,41 @@ def evaluator_for(dataset, right_faces, left_faces) -> Evaluator:
 
 def _as_numpy(x) -> np.ndarray:
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _render_one_result(task) -> None:
+    """Render one prediction to jpg (module-level for multiprocessing)."""
+    from ihmr_tpu_torch.data import image_io
+    from ihmr_tpu_torch.utils import vis
+
+    result, faces_r, faces_l, size, res_vis_dir = task
+    img = ori = None
+    if io_utils.osp.exists(result["img_path"]):
+        try:
+            ori = image_io.imread(result["img_path"])
+        except (OSError, ValueError):
+            pass  # unreadable, where cv2.imread returns None: a blank canvas
+    if ori is not None:
+        h, w = ori.shape[:2]
+        ratio = size / max(h, w)
+        canvas = np.zeros((size, size, 3), np.uint8)
+        rh, rw = int(h * ratio), int(w * ratio)
+        canvas[:rh, :rw] = image_io.resize_linear(ori, (rw, rh))
+        img = canvas[..., ::-1]  # BGR -> RGB
+    if img is None:
+        img = np.zeros((size, size, 3), np.uint8)
+    render = vis.render_together(
+        [
+            np.asarray(result["pred_right_hand_verts"], np.float32),
+            np.asarray(result["pred_left_hand_verts"], np.float32),
+        ],
+        [faces_r, faces_l],
+        [vis.COLORS["light_green"], vis.COLORS["light_blue"]],
+        np.asarray(result["pred_cam_params"]),
+        size,
+        img,
+    )
+    out = np.concatenate([img, render], axis=0)
+    name = result["img_path_relative"].replace("/", "_")
+    name = name.rsplit(".", 1)[0] + ".jpg"
+    image_io.imwrite_jpeg(io_utils.osp.join(res_vis_dir, name), np.ascontiguousarray(out[..., ::-1]))

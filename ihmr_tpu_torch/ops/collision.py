@@ -1,5 +1,5 @@
 """Interpenetration loss between two hand meshes (port of
-ihmr_tpu/ops/collision.py, all backends but the 2-level hierarchy).
+ihmr_tpu/ops/collision.py).
 
   * in the refinement loop: nearest-centroid face selection
     (``nearest_face_indices`` / ``pair_indices``, the JAX package's bf16 rank)
@@ -10,6 +10,13 @@ ihmr_tpu/ops/collision.py, all backends but the 2-level hierarchy).
     the K nearest centroids by the same rank, each refined exactly, with the
     tie-set pseudonormal inside test; K=1 takes the argmin face alone;
   * the reference's grid field (``"grid"``, ops/grid_sdf.py);
+  * the 2-level hierarchy (``"2level"``, ``penetration_depth_2level``): each
+    query's two nearest clusters of ``cluster_group`` Morton-adjacent faces
+    by the bf16 rank against the clusters' mean centroids, then its nearest
+    member centroid of the two in fp32, refined exactly on that one face;
+  * the merged per-block payload builder ``pair_select_tris`` (both
+    directions' nearest faces and their positions in one (2B) pass; the
+    engine's ``IHMR_PAYLOAD_FUSED=1`` switch);
   * the final metric: ``collision_loss`` with the exact kernel
     (ops/exact_collision.py, the port of the TPU kernel K1), ANDed with the
     ray-parity inside test (``ray_parity_inside``);
@@ -20,8 +27,6 @@ ihmr_tpu/ops/collision.py, all backends but the 2-level hierarchy).
 
 Outputs follow the reference triple: (batch-mean loss, per-sample loss (B,),
 per-vertex origin-scale depths (B, 2*Vq)), vertex order [right | left].
-Not ported: the 2-level hierarchy (``loop_collision_cluster``) and the merged
-payload builder ``pair_select_tris`` (an environment switch of the JAX engine).
 """
 
 from __future__ import annotations
@@ -112,12 +117,18 @@ def _centroids(tri: torch.Tensor) -> torch.Tensor:
 def _centroid_rank(query: torch.Tensor, tri: torch.Tensor) -> torch.Tensor:
     """(B, V, F) rank |c|^2 - 2 q.c of every query against every centroid of
     the (B, F, 3, 3) triangles, with the arithmetic the JAX package's jitted
-    bf16 rank compiles to: centroids as (a + b + c) * fp32(1/3), operands
-    rounded to bf16, products and sums in fp32, and |c|^2, q.c and the rank
-    each rounded to bf16 (XLA keeps the products and sums inside its fusions
-    in fp32; rounding after every op, as eager JAX does, picks another face
-    for ~3% of queries). No gradient."""
-    cb = _bf16(_centroids(tri.detach()))  # (B, F, 3)
+    bf16 rank compiles to: centroids as (a + b + c) * fp32(1/3), then
+    ``_point_rank``. No gradient."""
+    return _point_rank(query, _centroids(tri.detach()))
+
+
+def _point_rank(query: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """(B, V, P) bf16 rank |c|^2 - 2 q.c of every query against every point
+    c of (B, P, 3): operands rounded to bf16, products and sums in fp32, and
+    |c|^2, q.c and the rank each rounded to bf16 (XLA keeps the products and
+    sums inside its fusions in fp32; rounding after every op, as eager JAX
+    does, picks another face for ~3% of queries). No gradient."""
+    cb = _bf16(points.detach())  # (B, P, 3)
     qb = _bf16(query.detach())
     c2 = _bf16((cb[..., 0] * cb[..., 0] + cb[..., 1] * cb[..., 1]) + cb[..., 2] * cb[..., 2])
     q, c = qb[:, :, None, :], cb[:, None, :, :]
@@ -307,6 +318,94 @@ def pair_depths_fast(
     return torch.cat([depth[:B], depth[B:]], dim=1)
 
 
+def nearest_faces_2level(query: torch.Tensor, tri: torch.Tensor, group: int = 8) -> torch.Tensor:
+    """(B, V) face index per query by the 2-level hierarchy over the
+    (B, F, 3, 3) Morton-sorted triangles: level 1 ranks every query against
+    the F/group cluster mean centroids (the bf16 rank of ``_point_rank``;
+    the last cluster padded with copies of the last centroid) and keeps the
+    best two clusters (the second with the first masked to bf16(3.4e38),
+    which rounds to +inf); level 2 takes the nearest of their 2 x group
+    member centroids by fp32 squared distance (the first cluster's members
+    first), the index clamped to F - 1. No gradient."""
+    if group < 1:
+        raise ValueError(f"cluster group must be >= 1, got {group}")
+    B, F = tri.shape[0], tri.shape[1]
+    centroid = _centroids(tri.detach())  # (B, F, 3)
+    nc = -(-F // group)
+    pad = nc * group - F
+    if pad:
+        centroid = torch.cat([centroid, centroid[:, -1:].expand(B, pad, 3)], dim=1)
+    cent_g = centroid.reshape(B, nc, group, 3)
+    sup = cent_g[:, :, 0]
+    for k in range(1, group):  # the cluster's mean, summed in member order
+        sup = sup + cent_g[:, :, k]
+    sup = sup * (1.0 / group)
+    rank1 = _point_rank(query, sup)  # (B, V, nc)
+    c1 = rank1.argmin(dim=-1)  # (B, V)
+    c2 = rank1.scatter(-1, c1[..., None], float("inf")).argmin(dim=-1)
+    b = torch.arange(B, device=query.device)[:, None]
+    d = query.detach()[:, :, None, :] - torch.cat([cent_g[b, c1], cent_g[b, c2]], dim=2)  # (B, V, 2g, 3)
+    g_idx = ((d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]).argmin(dim=-1)
+    c_win = torch.where(g_idx < group, c1, c2)
+    return torch.clamp(c_win * group + g_idx % group, max=F - 1)
+
+
+def penetration_depth_2level(
+    query: torch.Tensor,  # (B, V, 3)
+    mesh_verts: torch.Tensor,  # (B, Vm, 3)
+    faces: torch.Tensor,  # (F, 3), outward winding, Morton-sorted
+    group: int = 8,
+) -> torch.Tensor:
+    """(B, V) depth through the 2-level nearest-centroid hierarchy.
+
+    Morton order makes ``group`` consecutive faces a spatially tight
+    cluster; each query's face is ``nearest_faces_2level``'s and the depth
+    is refined exactly on that one triangle, as the K=1 path refines. The
+    mesh side is detached."""
+    tri = mesh_verts.detach()[:, faces]  # (B, F, 3, 3)
+    f_idx = nearest_faces_2level(query, tri, group)
+    tri_best = tri[torch.arange(tri.shape[0], device=tri.device)[:, None], f_idx]  # (B, V, 3, 3)
+    return _depth_at_tris_single(query, tri_best)
+
+
+def _pair_depths_2level(query_r, query_l, mesh_r, mesh_l, faces_right, faces_left, group):
+    """(B, 2Vq) 2-level depths of both directions. Queries may be strided;
+    the mesh sides must be the FULL vertex arrays."""
+    return torch.cat(
+        [
+            penetration_depth_2level(query_r, mesh_l, faces_left, group),
+            penetration_depth_2level(query_l, mesh_r, faces_right, group),
+        ],
+        dim=1,
+    )
+
+
+@torch.no_grad()
+def pair_select_tris(
+    query_r: torch.Tensor,  # (B, Vq, 3) possibly strided right queries
+    query_l: torch.Tensor,  # (B, Vq, 3)
+    mesh_r: torch.Tensor,  # (B, 778, 3) FULL vertex arrays
+    mesh_l: torch.Tensor,  # (B, 778, 3)
+    faces_right: torch.Tensor,
+    faces_left: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The block-frozen payload in one merged (2B) pass: each query's
+    nearest face of the other hand and that face's positions ->
+    (tri_r, tri_l), each (B, Vq, 3, 3), detached. The JAX package's
+    arithmetic: the centroids as (a + b + c) / 3.0 (a true division, not
+    ``_centroids``' multiply by 1/3), the bf16 rank of ``_point_rank``, the
+    first least rank."""
+    B = query_r.shape[0]
+    tri = torch.cat(
+        [mesh_l.detach()[:, faces_left].reshape(B, -1, 9), mesh_r.detach()[:, faces_right].reshape(B, -1, 9)]
+    )  # (2B, F, 9): right queries scan the left mesh, so the left tris stack first
+    q = torch.cat([query_r, query_l]).detach()
+    cent = ((tri[..., 0:3] + tri[..., 3:6]) + tri[..., 6:9]) / 3.0
+    idx = _point_rank(q, cent).argmin(dim=-1)  # (2B, Vq)
+    sel = torch.gather(tri, 1, idx[..., None].expand(-1, -1, 9)).reshape(2 * B, -1, 3, 3)
+    return sel[:B], sel[B:]
+
+
 # fixed irregular ray direction of the parity test, and its face chunk
 _PARITY_DIR = (0.57738027, 0.57725433, 0.57745315)
 _PARITY_CHUNK = 128
@@ -417,6 +516,7 @@ def collision_loss(
     robustifier: Optional[float] = None,
     num_candidates: int = 8,
     backend: str = "auto",
+    cluster_group: int = 8,
     query_subsample: int = 1,
     margin: float = 0.0,
     parity_filter: bool = False,
@@ -430,7 +530,9 @@ def collision_loss(
     (ops/grid_sdf.py, its default knobs); "fast" the in-loop
     single-candidate path (``pair_depths_fast``, the kernel K2), which needs
     ``num_candidates=1`` and follows the JAX package's TPU branch on every
-    device, where it takes no margin. ``query_subsample`` strides the
+    device, where it takes no margin; "2level" the 2-level hierarchy
+    (``penetration_depth_2level``, ``cluster_group`` faces a cluster).
+    ``query_subsample`` strides the
     queries of each direction, never the mesh. ``margin`` (an outward shell,
     ``_shell_depth``) applies to "xla" and "fast" only. ``parity_filter``
     ANDs the depths with ``ray_parity_inside``."""
@@ -452,8 +554,12 @@ def collision_loss(
         depths = pair_depths_grid(right_verts[:, ::s], left_verts[:, ::s], grids)
     elif backend == "xla":
         depths = _pair_depths(right_verts, left_verts, faces_right, faces_left, num_candidates, s, margin)
+    elif backend == "2level":
+        depths = _pair_depths_2level(
+            right_verts[:, ::s], left_verts[:, ::s], right_verts, left_verts, faces_right, faces_left, cluster_group
+        )
     else:
-        raise NotImplementedError(f"collision backend {backend!r} is not ported")
+        raise ValueError(f"unknown collision backend {backend!r}")
     if parity_filter:
         depths = pair_parity_filter(depths, right_verts, left_verts, faces_right, faces_left, s)
     return depths_to_loss(depths, right_verts, left_verts, hand_type_array, robustifier)

@@ -241,8 +241,9 @@ def short_eval_gaps(a: Dict[str, float], b: Dict[str, float]) -> Dict[str, float
 # save_mid_freq=2: JAX's per-stage programs with SGD (opt_default's trans,
 # orient and shape stages at epoch 7), the two-pass escalation at threshold
 # 1e-6 (the orient stage at epoch 4: pass 1 leaves one sample in collision,
-# which pass 2 lowers, so the merge takes it) and the grid in the loop (the
-# orient stage at epoch 7, res 8, every 4th face, K=1). The same fp32
+# which pass 2 lowers, so the merge takes it), the grid in the loop (the
+# orient stage at epoch 7, res 8, every 4th face, K=1) and the 2-level
+# hierarchy in the loop (the orient stage at epoch 7, clusters of 8). The same fp32
 # arithmetic runs on both devices (K1 equals its plain version); only
 # reduction orders differ, which the CPU tests against the JAX package
 # bound at <= 2.4e-7 over these horizons. So: params within 2e-4 (the
@@ -253,6 +254,7 @@ SHORT_COLLISION_RUNS = {
     "escalation": (dict(save_mid_freq=2, escalate_collision=1e-6), (1,), 4),
     "grid": (dict(save_mid_freq=2, loop_collision_fast=False, collision_backend="grid", grid_res=8,
                   grid_face_subsample=4, grid_num_candidates=1), (1,), 7),
+    "two_level": (dict(save_mid_freq=2, loop_collision_cluster=8), (1,), 7),
 }
 SHORT_COLLISION_TOL = dict(params=2e-4, collision_rtol=1e-3)
 

@@ -54,6 +54,7 @@ escalation of refine/escalation.py.
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
@@ -79,6 +80,7 @@ from ihmr_tpu_torch.ops.collision import (
     pair_depths_at,
     pair_depths_at_tris,
     pair_indices,
+    pair_select_tris,
     pair_tris_at,
 )
 from ihmr_tpu_torch.ops.grid_sdf import pair_depths_grid, pair_grids
@@ -125,9 +127,15 @@ class OptConfig:
         "xla": the K-candidate depth; "fast": the kernel K2), or with
         "grid" the reference's field, rebuilt once a superblock from the
         ``grid_*`` knobs;
+      * ``loop_collision_cluster = g > 0`` (with ``loop_collision_fast``):
+        the 2-level hierarchy over clusters of g Morton-adjacent faces
+        (``collision_loss(backend="2level")``) every step, no block payload;
       * ``escalate_collision > 0``: two passes (refine/escalation.py).
-    Not ported: ``loop_collision_cluster`` (the 2-level hierarchy, a
-    measured negative result of the JAX package); it raises when set."""
+    ``collision_backend="2level"`` takes the hierarchy where the backend is
+    read (``loop_collision_fast=False`` in the loop, the final pass), with
+    ``loop_collision_cluster`` faces a cluster: it needs
+    ``loop_collision_cluster > 0``. The pair constructs without it, as in
+    JAX, and ``optimize_batch`` refuses it before any step."""
 
     optimizer: str = "adam"
     save_mid_freq: int = 10
@@ -154,17 +162,8 @@ class OptConfig:
     stage_hoist_decode: bool = True
 
     def __post_init__(self):
-        defaults = {f.name: f.default for f in dataclasses.fields(self)}
-        for name in _UNPORTED:
-            if getattr(self, name) != defaults[name]:
-                raise NotImplementedError(
-                    f"OptConfig.{name}={getattr(self, name)!r}: that path is not ported "
-                    f"(only the default {defaults[name]!r} is)"
-                )
         if self.optimizer not in ("adam", "sgd"):
             raise ValueError(f"optimizer={self.optimizer!r}: 'adam' or 'sgd'")
-        if self.collision_backend == "2level":
-            raise NotImplementedError("collision_backend='2level' (the 2-level hierarchy) is not ported")
         if self.collision_backend not in _BACKENDS:
             raise ValueError(f"collision_backend={self.collision_backend!r}: one of {_BACKENDS}")
         for name in ("save_mid_freq", "num_candidates", "loop_collision_subsample",
@@ -189,11 +188,12 @@ class OptConfig:
         return (not self.loop_collision_fast) and self.collision_backend == "grid"
 
 
-# collision backends this port runs ("auto" and "pallas" are the exact kernel)
-_BACKENDS = ("auto", "pallas", "xla", "grid", "fast")
-# fields whose non-default values select paths this port does not have: the
-# 2-level hierarchy
-_UNPORTED = ("loop_collision_cluster",)
+# collision backends ("auto" and "pallas" are the exact kernel)
+_BACKENDS = ("auto", "pallas", "xla", "grid", "fast", "2level")
+# the merged per-block payload builder (ops/collision.py::pair_select_tris)
+# instead of pair_indices + pair_tris_at, read at import as the JAX package
+# reads it and looked up at call time: IHMR_PAYLOAD_FUSED=1
+_PAYLOAD_FUSED = os.environ.get("IHMR_PAYLOAD_FUSED", "0") != "0"
 
 
 def params_from_init(
@@ -325,7 +325,7 @@ def compute_losses(
 
     w_coll = weights["collision_loss_weight"]
     if in_loop and config.loop_collision_fast:
-        backend, num_candidates = "xla", 1
+        backend, num_candidates = ("2level" if config.loop_collision_cluster > 0 else "xla"), 1
     else:
         backend, num_candidates = config.collision_backend, config.num_candidates
         if backend == "fast":  # single-candidate whatever num_candidates says, as in JAX
@@ -335,7 +335,9 @@ def compute_losses(
             backend, num_candidates = "auto", 8
     sub = config.loop_collision_subsample if in_loop else 1
     fsub = config.loop_collision_face_subsample if in_loop else 1
-    fast_in_loop = in_loop and config.loop_collision_fast
+    # the frozen-payload and parity paths ARE the flat nearest-face selection:
+    # never taken with the 2-level hierarchy
+    fast_in_loop = in_loop and config.loop_collision_fast and config.loop_collision_cluster == 0
     margin = config.loop_collision_margin
     if in_loop and skip_zero_collision and float(w_coll) == 0.0:
         # a weight of 0: no gradient and no filter pressure, so skip the work
@@ -371,6 +373,7 @@ def compute_losses(
             robustifier=config.robustifier,
             num_candidates=num_candidates,
             backend=backend,
+            cluster_group=config.loop_collision_cluster,
             query_subsample=sub,
             margin=margin if in_loop else 0.0,
             parity_filter=(not in_loop) and config.exact_parity_filter,
@@ -417,7 +420,8 @@ def _lazy_coll_payload(
         ``loop_collision_subsample`` query's nearest face of the other
         hand's stride-``loop_collision_face_subsample`` face set (Morton
         order makes that a uniform sub-mesh of the FULL vertex array), as
-        positions, plus the AABB normalisation scale;
+        positions, plus the AABB normalisation scale (with
+        ``IHMR_PAYLOAD_FUSED=1``: built by the merged ``pair_select_tris``);
       * ``"idx"``: (idx_r, idx_l), the selection alone (positions are taken
         at every step);
       * ``"grid"``: the two hands' grids from the ``grid_*`` knobs
@@ -434,6 +438,14 @@ def _lazy_coll_payload(
         )
     faces_r, faces_l = _strided_faces(model, config.loop_collision_face_subsample)
     scale = pair_aabb_scale(rv, lv) if mode == "tris" else None
+    if mode == "tris" and _PAYLOAD_FUSED:
+        # every parity's queries in one merged call, concatenated on the V axis
+        qs = [_query_subsets(rv, lv, config.loop_collision_subsample, parity) for parity in parities]
+        tri_r, tri_l = pair_select_tris(
+            torch.cat([q[0] for q in qs], dim=1), torch.cat([q[1] for q in qs], dim=1), rv, lv, faces_r, faces_l
+        )
+        v = qs[0][0].shape[1]
+        return tuple((tri_r[:, i * v:(i + 1) * v], tri_l[:, i * v:(i + 1) * v], scale) for i in range(len(qs)))
     out = []
     for parity in parities:
         q_r, q_l = _query_subsets(rv, lv, config.loop_collision_subsample, parity)
@@ -697,6 +709,8 @@ def optimize_batch(
     the per-stage programs (``run_stage_program``). With
     ``escalate_collision > 0`` this is pass 1 of the two-pass grid escalation
     (refine/escalation.py), which adds ``results["escalated"]``."""
+    if config.collision_backend == "2level" and config.loop_collision_cluster < 1:
+        raise ValueError('collision_backend="2level" needs loop_collision_cluster > 0 (the faces of a cluster)')
     if config.escalate_collision > 0.0:
         from ihmr_tpu_torch.refine.escalation import optimize_batch_escalated
 

@@ -9,8 +9,9 @@ and ``set_epoch`` (``data.BatchList``, or a dataset's ``BatchLoader`` behind
 ``optimize_loop`` take, as the JAX loops do, any iterable of raw batch
 dicts with the datasets' keys (numpy arrays; ``_to_baseline_batch`` and
 ``_to_opt_batch`` say which) and a ``dataset`` whose ``data_list`` names the
-samples (None: the Evaluator names them by index). Not ported yet: the
-visualizer hook of the training loop (``utils/``).
+samples (None: the Evaluator names them by index). With a ``visualizer``
+(``utils.visualizer.Visualizer``) the training loop renders the training
+panels every ``display_freq`` samples on the main process.
 """
 
 from __future__ import annotations
@@ -161,6 +162,21 @@ class BatchAdapter:
             yield batch
 
 
+@torch.no_grad()
+def _display(visualizer, state, batch, mano_right, mano_left, config, epoch, i, steps, values) -> None:
+    """The training loop's visualizer hook: one eval_step, the first sample's
+    panels written, the step's losses added to the curves."""
+    from ihmr_tpu_torch.utils.train_visuals import visuals_from_eval_outputs
+
+    _metrics, outputs = eval_step(state, batch, mano_right, mano_left, config)
+    visuals = visuals_from_eval_outputs(
+        batch, {k: v for k, v in outputs.items() if v is not None}, mano_right.faces, mano_left.faces,
+        input_size=int(batch.img.shape[1]),
+    )
+    visualizer.display_current_results(visuals, epoch, i)
+    visualizer.plot_current_errors(epoch + i / max(steps, 1), values)
+
+
 def _state_info(state: BaselineState, epoch: int) -> Dict:
     adam = state.adam
     return {"epoch": epoch, "lr": state.lr, "adam": {"t": adam.t, "m": adam.m, "v": adam.v}}
@@ -209,6 +225,8 @@ def train_baseline_loop(
     save_epoch_freq: int = 5,
     is_main: bool = True,
     epoch_stats: Optional[List[Dict]] = None,
+    visualizer=None,
+    display_freq: int = 0,
 ) -> BaselineState:
     """Epochs ``start_epoch`` .. ``config.total_epoch``: a train step per
     batch at the epoch's learning rate, running losses printed every
@@ -221,7 +239,14 @@ def train_baseline_loop(
     time. ``epoch_stats``, when given, receives per epoch: "epoch",
     "step_seconds" (data + forward time, the checkpoint excluded), its split
     "data_seconds" / "forward_seconds" (``TimeStat``), "steps" and
-    "total_loss" (each step's)."""
+    "total_loss" (each step's).
+
+    With ``visualizer`` and ``display_freq`` > 0 the main process, every
+    ``display_freq`` samples, runs one ``eval_step`` on the step's batch (one
+    exact collision pass), builds the panels of its first sample
+    (``utils.train_visuals.visuals_from_eval_outputs``), writes them
+    (``display_current_results``) and adds the step's losses to the curves
+    at epoch + i / len(loader); ``TimeStat`` counts that as visualize time."""
     loss_stat = LossStat(len(loader))
     time_stat = TimeStat(config.total_epoch)
     for epoch in range(start_epoch, config.total_epoch + 1):
@@ -229,6 +254,7 @@ def train_baseline_loop(
         loss_stat.set_epoch(epoch)
         time_stat.epoch_init(epoch)
         printed = 0
+        displayed = 0
         step_losses = []
         for i, batch in enumerate(loader):
             time_stat.stat_data_time()
@@ -242,6 +268,11 @@ def train_baseline_loop(
             if is_main and printed >= print_freq:
                 loss_stat.print_loss(i)
                 printed = 0
+            if is_main and visualizer is not None and display_freq > 0:
+                displayed += n
+                if displayed >= display_freq:
+                    displayed = 0
+                    _display(visualizer, state, batch, mano_right, mano_left, config, epoch, i, len(loader), values)
             time_stat.stat_visualize_time()
         if epoch_stats is not None:
             epoch_stats.append(dict(

@@ -173,7 +173,10 @@ def test_collision_loss_with_parity_filter(hands):
     np.testing.assert_allclose(ours[0].numpy(), np.asarray(ref[0]), rtol=1e-5)
     np.testing.assert_allclose(ours[1].numpy(), np.asarray(ref[1]), rtol=1e-5)
     np.testing.assert_allclose(ours[2].numpy(), np.asarray(ref[2]), atol=1e-5)
-    # the 2-level hierarchy is the one backend not ported ("xla" and "grid"
-    # are held to JAX in tests/test_torch_port_kcandidate.py and _grid.py)
-    with pytest.raises(NotImplementedError):
-        TC.collision_loss(*map(T, (rv, lv, faces_r, faces_l, hand_type)), backend="2level")
+    # the 2-level hierarchy at its default group ("xla" and "grid" are held to
+    # JAX in tests/test_torch_port_kcandidate.py and _grid.py, the hierarchy's
+    # selections in tests/test_torch_port_twolevel.py)
+    ref = JC.collision_loss(*map(jnp.asarray, (rv, lv, faces_r, faces_l, hand_type)), backend="2level")
+    ours = TC.collision_loss(*map(T, (rv, lv, faces_r, faces_l, hand_type)), backend="2level")
+    np.testing.assert_allclose(ours[1].numpy(), np.asarray(ref[1]), rtol=1e-5)
+    np.testing.assert_allclose(ours[2].numpy(), np.asarray(ref[2]), atol=1e-6)

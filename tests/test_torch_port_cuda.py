@@ -39,13 +39,17 @@ tracker parity test's bound); a bf16 train step of ResNet-50 launches K3 53 time
 on a bf16 activation.
 
 The in-loop collision paths: JAX's per-stage SGD programs, the two-pass
-escalation and the grid in the loop (``pipeline.run_short_collision_paths``)
+escalation, the grid and the 2-level hierarchy in the loop
+(``pipeline.run_short_collision_paths``)
 on the card and on the CPU within ``pipeline.SHORT_COLLISION_TOL`` (params
 2e-4, final collision 1e-3 relative, escalation masks equal); the grid
 build chunked into many calls gives the unchunked bits on the card; a
 gradient step with K1 in the loop launches K1 once, and its gradient
 matches the same step on the CPU (the plain version) within 1e-5 of the
-largest entry.
+largest entry. On the same vertices, the 2-level hierarchy's selections on
+the card equal the CPU's (the same bf16 rank arithmetic, the first least
+index), its depths within 1e-5, and the merged payload builder's triangles
+bit for bit. (The decode itself differs by ~4e-8 between the devices.)
 """
 
 import dataclasses
@@ -426,3 +430,24 @@ def test_exact_kernel_in_the_loop_launches_once_a_step(cuda):
     scale = max(float(g.abs().max()) for g in grads[1])
     for a, b in zip(*grads):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("group,fsub", [(8, 1), (8, 2), (7, 2)])
+def test_two_level_depth_matches_cpu(cuda, group, fsub):
+    from ihmr_tpu_torch.ops import collision as C
+
+    mano = synthetic_mano_model(device="cpu")
+    params, _ = make_opt_inputs(mano, batch=8, seed=0, variant="interlocked")
+    with torch.no_grad():
+        rv, lv, _, _ = forward(mano, params)  # the same vertices on both devices
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        r, l, faces = rv.to(dev), lv.to(dev), mano.faces[::fsub].to(dev)
+        out[dev.type] = (C.nearest_faces_2level(r[:, ::2], l[:, faces], group).cpu(),
+                         C.penetration_depth_2level(r[:, ::2], l, faces, group).cpu(),
+                         [t.cpu() for t in C.pair_select_tris(r[:, ::2], l[:, ::2], r, l, faces, faces.flip(-1))])
+    (idx_g, depth_g, tris_g), (idx_c, depth_c, tris_c) = out["cuda"], out["cpu"]
+    assert torch.equal(idx_g, idx_c)
+    np.testing.assert_allclose(depth_g.numpy(), depth_c.numpy(), atol=1e-5, rtol=0)
+    assert bool((depth_c > 0).any())
+    assert all(torch.equal(a, b) for a, b in zip(tris_g, tris_c))

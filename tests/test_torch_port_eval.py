@@ -174,8 +174,13 @@ def test_export_objs_and_render(evaluators, tmp_path):
         assert (tmp_path / "port" / name).read_text() == (tmp_path / "jax" / name).read_text()
         v, f = tio.load_obj(str(tmp_path / "port" / name))
         assert v.shape == (1556, 3) and f.shape == (3076, 3)
-    with pytest.raises(NotImplementedError, match="utils/"):
-        ours.render_results(str(tmp_path / "vis"))
+    # the render of the same results: the same jpg bytes (tests/test_torch_port_render.py covers the forked path)
+    ours.render_results(str(tmp_path / "vis_port"), limit=2)
+    ref.render_results(str(tmp_path / "vis_jax"), limit=2)
+    names = sorted(p.name for p in (tmp_path / "vis_port").iterdir())
+    assert names == sorted(p.name for p in (tmp_path / "vis_jax").iterdir()) and len(names) == 2
+    for name in names:
+        assert (tmp_path / "vis_port" / name).read_bytes() == (tmp_path / "vis_jax" / name).read_bytes()
 
 
 def _assert_pkl_equal(a, b):

@@ -101,16 +101,13 @@ def test_opt_config_defaults_and_unported_paths():
     ours, ref = OptConfig(), JE.OptConfig()
     for f in dataclasses.fields(OptConfig):
         assert getattr(ours, f.name) == getattr(ref, f.name), f.name
-    # the 2-level hierarchy is the one path not ported
-    with pytest.raises(NotImplementedError):
-        OptConfig(loop_collision_cluster=2)
-    with pytest.raises(NotImplementedError):
-        OptConfig(collision_backend="2level")
-    # every other in-loop path constructs (the K-candidate, grid and exact
-    # backends, per-step reselection, tracked positions, parity-alternating
-    # queries, escalation, the grid knobs), and so do SGD and the full decode
-    # alone or together (JAX's per-stage programs)
+    # every in-loop path constructs (the 2-level hierarchy, once the one path
+    # not ported, the K-candidate, grid and exact backends, per-step
+    # reselection, tracked positions, parity-alternating queries, escalation,
+    # the grid knobs), and so do SGD and the full decode alone or together
+    # (JAX's per-stage programs)
     for ok in (
+        dict(loop_collision_cluster=2), dict(collision_backend="2level", loop_collision_cluster=8),
         dict(collision_backend="xla"), dict(num_candidates=4), dict(loop_collision_fast=False),
         dict(loop_collision_alternate=True), dict(escalate_collision=1.0), dict(loop_collision_lazy_reselect=False),
         dict(loop_collision_freeze_positions=False), dict(grid_res=16), dict(collision_backend="grid", grid_focus=True),

@@ -2,12 +2,17 @@
 nothing of jax, flax, optax or the JAX package ``ihmr_tpu``, and neither
 cv2 nor PIL (an AST scan of every import statement, including ones inside
 functions); and its data
-layer and command line run without cv2 or PIL (the card's machine has
-neither): a fresh interpreter where both imports fail reads a PNG corpus
-through every dataset, decodes every committed JPEG fixture to the bytes
-cv2 gives and runs the augmentation cases (``image_cases.check_fixtures``),
-trains through the CLI on a JPEG corpus with the rotation, colour-jitter
-and motion-blur flags on, and raises on a broken JPEG, naming the file."""
+layer, command line and renderer run without cv2 or PIL (the card's
+machine has neither): a fresh interpreter where both imports fail reads a
+PNG corpus through every dataset, decodes every committed JPEG fixture to
+the bytes cv2 gives and runs the augmentation cases
+(``image_cases.check_fixtures``), writes the encoder's cases as the bytes
+cv2 writes (``image_cases.check_encoder``), trains through the CLI on a
+JPEG corpus with the rotation, colour-jitter and motion-blur flags on,
+renders one result to a ``.jpg`` (``Evaluator.render_results``), writes a
+gallery and its loss curves through ``Visualizer`` (the curves skipped:
+matplotlib cannot be imported without PIL), and raises on a broken JPEG,
+naming the file."""
 
 import ast
 import pathlib
@@ -86,6 +91,12 @@ def test_scan_covers_the_package():
         "ihmr_tpu_torch/train/profiling.py",
         "ihmr_tpu_torch/train/stats.py",
         "ihmr_tpu_torch/utils/io_utils.py",
+        "ihmr_tpu_torch/utils/live_dashboard.py",
+        "ihmr_tpu_torch/utils/train_visuals.py",
+        "ihmr_tpu_torch/utils/vis.py",
+        "ihmr_tpu_torch/utils/visualizer.py",
+        "ihmr_tpu_torch/parallel/dist.py",
+        "ihmr_tpu_torch/parallel/__init__.py",
     } <= names
 
 
@@ -98,7 +109,7 @@ import torch
 torch.set_num_threads(1)
 import ihmr_tpu_torch.cli
 from ihmr_tpu_torch.data import BaselineDataset, DataConfig, MLPDataset, OPTDataset
-from ihmr_tpu_torch.data.image_cases import FIXTURE_DIR, check_fixtures
+from ihmr_tpu_torch.data.image_cases import FIXTURE_DIR, check_encoder, check_fixtures
 from ihmr_tpu_torch.data.image_io import imread
 from ihmr_tpu_torch.data.synthetic import use_jpeg_images, write_blur_kernels, write_corpus
 
@@ -122,6 +133,36 @@ out = ihmr_tpu_torch.cli.main([
     "--use_random_rotation", "--use_color_jittering", "--use_motion_blur", "--blur_kernel_dir", blur,
 ])
 assert out["epoch_stats"][0]["steps"] == 2, out
+check_encoder()
+
+import numpy as np
+from ihmr_tpu_torch.data import make_opt_inputs
+from ihmr_tpu_torch.eval import Evaluator
+from ihmr_tpu_torch.mano import synthetic_mano_model
+from ihmr_tpu_torch.refine.opt_engine import forward
+from ihmr_tpu_torch.utils.train_visuals import visuals_from_eval_outputs
+from ihmr_tpu_torch.utils.visualizer import Visualizer
+
+model = synthetic_mano_model(device="cpu")
+params, _ = make_opt_inputs(model, batch=1, seed=0)
+with torch.no_grad():
+    rv, lv, j3, j2 = forward(model, params)
+ev = Evaluator([dict(img_path="corpus_256x192.jpg")], image_root=FIXTURE_DIR, input_size=64,
+               right_faces=model.faces.numpy(), left_faces=model.faces.flip(-1).numpy())
+ev.update(torch.arange(1), dict(
+    pred_cam_params=params["cam"], pred_shape_params=torch.zeros(1, 20), pred_pose_params=torch.zeros(1, 96),
+    pred_hand_trans=params["trans"], pred_joints_3d=j3, pred_joints_2d=j2, gt_joints_3d=torch.zeros(1, 42, 4),
+    collision_loss_origin_scale=torch.zeros(1, 1556), pred_right_hand_verts=rv, pred_left_hand_verts=lv,
+    do_flip=torch.zeros(1, dtype=torch.int32)))
+ev.render_results(os.path.join(root, "render"))
+assert imread(os.path.join(root, "render", "corpus_256x192.jpg")).shape == (256, 128, 3)
+vis = Visualizer(os.path.join(root, "gallery"))
+batch = type("B", (), dict(img=torch.zeros(1, 64, 64, 3), joints_2d=torch.zeros(1, 42, 3)))
+outputs = dict(pred_joints_2d=j2, pred_cam_params=params["cam"], gt_right_hand_verts=rv, gt_left_hand_verts=lv,
+               pred_right_hand_verts=rv, pred_left_hand_verts=lv)
+vis.display_current_results(visuals_from_eval_outputs(batch, outputs, model.faces, model.faces.flip(-1), input_size=64), 1)
+vis.plot_current_errors(1.0, {"total_loss": 1.0})
+assert len(os.listdir(vis.img_dir)) == 5 and vis.curves_skipped is not None
 jpg = os.path.join(root, "x.jpg")
 with open(jpg, "wb") as f:
     f.write(bytes([0xFF, 0xD8, 0xFF, 0xE0]) + bytes(16))
