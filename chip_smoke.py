@@ -210,6 +210,30 @@ Phases (each raises on failure; any failure exits non-zero before the last line)
    hands/sec, peak memory and the final mean exact collision of each, K1
    once per run (after phase 13; phase 12's small card-vs-CPU runs include
    the 2-level hierarchy at B=4).
+19. Data parallelism (``parallel/mesh.py``; run last): (a) phase 5's
+   replayed batch and weights (ResNet-50 224x224, B=64, fp32 without TF32,
+   bn_impl="pallas") through ``train/baseline.py::dp_loss_and_grads`` over
+   DP_SHARDS=4 shards of 16 on the card (a host thread and a stream each),
+   then over ``make_mesh()``, every visible card: the loss, every gradient
+   and the running statistics after the step against the one-device step
+   on the same batch and weights within ``pipeline.DP_TOL_RESNET50``, K3 53 x the
+   shard count from zeroed counts, no gradient crossing streams into a
+   parameter (torch's AccumulateGrad warning) (the gaps printed beside the
+   one-device step's own repeat and its step on the batch with each pair of
+   samples swapped, the step's fp32 rounding floor); the 4-shard step again,
+   within ``pipeline.DP_REPEAT_TOL`` of the first, and twice under
+   deterministic algorithms, the same bits; K3 on shard 0's 53 BatchNorm
+   inputs against a float64 sum and its plain version; the planted faults
+   ``DP_PLANTED`` (``pipeline.planted_dp_fault``: the race twice, shard-local
+   statistics once), each outside the bounds; ms/step of DP_STEPS=5
+   replayed steps after 2 warm-ups, one device and 4 shards in turns. (b)
+   ``bench.py``'s OPT workload (B=128, seed 0, opt_default,
+   save_mid_freq=10) on sharded params and batch over 4 shards of 32: over
+   4 x 21 steps every sample's params within DP_OPT_TOL of the one-device
+   run, K1 once a shard; then 4 x 51 steps (DP_TIMED_EPOCH) in turns, one
+   device, sharded, sharded, one device (hands/sec and final mean exact
+   collision of each), K1 4 in each sharded run, the last one's final
+   depths recomputed with K1's plain version.
 
 The run's time in all is printed beside the card's name and power limit.
 
@@ -230,6 +254,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -558,9 +583,23 @@ def phase_bn_kernel(dev):
     return max(errs)
 
 
-def phase_main_path(dev):
+def _k1_plain_err(rv, lv, faces_r, faces_l, depths):
+    """Largest gap between a final pass's parity-filtered exact depths and
+    the same depths through K1's plain version."""
     from ihmr_tpu_torch.ops import exact_collision as K
     from ihmr_tpu_torch.ops.collision import pair_parity_filter
+
+    B = rv.shape[0]
+    q = torch.cat([rv, lv])
+    tri = torch.cat([lv[:, faces_l].reshape(B, -1, 9), rv[:, faces_r].reshape(B, -1, 9)])
+    qp, tp, bounds = K.pad_inputs(q, tri)
+    ref, _, _ = K.exact_penetration_depth_reference(qp, tp, bounds, tri.shape[1])
+    ref = ref[:, : q.shape[1]]
+    ref = pair_parity_filter(torch.cat([ref[:B], ref[B:]], dim=1), rv, lv, faces_r, faces_l)
+    return float((ref - depths).abs().max())
+
+
+def phase_main_path(dev):
     from ihmr_tpu_torch.pipeline import make_bench_inputs, run_pipeline
 
     log("OPT path: ResNet-50 224x224 + opt_default (4 x 301 steps) at B=128, full MANO mesh")
@@ -598,15 +637,8 @@ def phase_main_path(dev):
     log(f"  all {len(tensors)} outputs finite")
 
     # the final pass's depths again, through the plain version
-    rv, lv = results["pred_right_hand_verts"], results["pred_left_hand_verts"]
-    faces_r, faces_l = inputs.mano.faces, inputs.mano.faces.flip(-1)
-    q = torch.cat([rv, lv])
-    tri = torch.cat([lv[:, faces_l].reshape(B, -1, 9), rv[:, faces_r].reshape(B, -1, 9)])
-    qp, tp, bounds = K.pad_inputs(q, tri)
-    ref, _, _ = K.exact_penetration_depth_reference(qp, tp, bounds, tri.shape[1])
-    ref = ref[:, : q.shape[1]]
-    ref = pair_parity_filter(torch.cat([ref[:B], ref[B:]], dim=1), rv, lv, faces_r, faces_l)
-    err = float((ref - results["collision_loss_origin_scale"]).abs().max())
+    err = _k1_plain_err(results["pred_right_hand_verts"], results["pred_left_hand_verts"], inputs.mano.faces,
+                        inputs.mano.faces.flip(-1), results["collision_loss_origin_scale"])
     log(f"  final-pass depths, kernel vs plain: max |err| {err:.3e} (tol {DEPTH_TOL})")
     if err > DEPTH_TOL:
         raise AssertionError("final-pass depths disagree with the plain version")
@@ -764,8 +796,6 @@ def phase_train_path(dev):
     import tempfile
 
     from ihmr_tpu_torch.models.resnet import BatchNorm
-    from ihmr_tpu_torch.ops import exact_collision as K
-    from ihmr_tpu_torch.ops.collision import pair_parity_filter
     from ihmr_tpu_torch.pipeline import make_train_bench_inputs, run_train_pipeline
     from ihmr_tpu_torch.data import baseline_raw_batch
     from ihmr_tpu_torch.train import eval_step, test_baseline_loop
@@ -804,17 +834,10 @@ def phase_train_path(dev):
     zero_counts()
     metrics, outputs = eval_step(inputs.state, inputs.batch, inputs.mano_right, inputs.mano_left, inputs.config)
     eval_counts = read_counts()
-    rv, lv = outputs["pred_right_hand_verts"], outputs["pred_left_hand_verts"]
-    faces_r, faces_l = inputs.mano_right.faces, inputs.mano_left.faces
-    q = torch.cat([rv, lv])
-    tri = torch.cat([lv[:, faces_l].reshape(B, -1, 9), rv[:, faces_r].reshape(B, -1, 9)])
-    qp, tp, bounds = K.pad_inputs(q, tri)
-    ref, _, _ = K.exact_penetration_depth_reference(qp, tp, bounds, tri.shape[1])
-    ref = ref[:, : q.shape[1]]
-    ref = pair_parity_filter(torch.cat([ref[:B], ref[B:]], dim=1), rv, lv, faces_r, faces_l)
-    err = float((ref - outputs["collision_loss_origin_scale"]).abs().max())
+    err = _k1_plain_err(outputs["pred_right_hand_verts"], outputs["pred_left_hand_verts"], inputs.mano_right.faces,
+                        inputs.mano_left.faces, outputs["collision_loss_origin_scale"])
     log(f"  eval step: launches {eval_counts}; depths kernel vs plain max |err| {err:.3e} "
-        f"(tol {DEPTH_TOL}); inside vertices {int((ref > 0).sum())}; "
+        f"(tol {DEPTH_TOL}); inside vertices {int((outputs['collision_loss_origin_scale'] > 0).sum())}; "
         + ", ".join(f"{k} {float(v):.5f}" for k, v in metrics.items()))
     check_counts("the eval step", eval_counts, exact_collision=1, nearest_centroid=0, bn_stats=0)
     if err > DEPTH_TOL:
@@ -1778,6 +1801,238 @@ def phase_cli_collision(dev, smi):
 TRACK_STREAMS, TRACK_FRAMES, TRACK_STEPS = 64, 8, 30  # scripts/tracker_study.py's S; 4 x 31 steps a frame
 
 
+DP_SHARDS = 4  # shards of the data-parallel runs on the one card (phase 19)
+DP_TRAIN_BATCH, DP_IMAGE, DP_ARCH = 64, 224, "resnet50"  # phase 5's replayed batch
+DP_STEPS, DP_WARMUP = 5, 2  # timed and warm-up steps of each side of phase 19's training turns
+DP_OPT_BATCH = 128  # bench.py's workload
+DP_SHORT_EPOCH = 20  # the short horizon: each opt_default stage at 21 steps
+DP_OPT_TOL = 5e-5  # sharded vs one-device params over the short horizon (the JAX package's bound between its engines)
+# the timed horizon, in turns: each opt_default stage at 51 steps (a sharded
+# run of the full schedule on one card takes ~120 s, its threads contending
+# for the interpreter lock)
+DP_TIMED_EPOCH = 50
+DP_OPT_TURNS = ("one device", "sharded", "sharded", "one device")
+# planted faults of the data-parallel step that its checks must catch
+# (``pipeline.planted_dp_fault``): "race" twice, since it comes out differently each time
+DP_PLANTED = ("race", "race", "local")
+
+
+@contextlib.contextmanager
+def _shard0_bn_inputs(out):
+    """Record each train-mode BatchNorm input that shard 0 of a mesh sees
+    (a global forward pre-hook: the shards call replicas of the encoder on
+    threads of their own)."""
+    from ihmr_tpu_torch.models.resnet import BatchNorm
+    from ihmr_tpu_torch.parallel.mesh import current_shard
+
+    def hook(module, args):
+        shard = current_shard()
+        if isinstance(module, BatchNorm) and module.training and shard is not None and shard.index == 0:
+            out.append(args[0].detach().clone())
+
+    handle = torch.nn.modules.module.register_module_forward_pre_hook(hook)
+    try:
+        yield out
+    finally:
+        handle.remove()
+
+
+@contextlib.contextmanager
+def _stream_mismatches(out):
+    """Collect torch's warnings that a gradient reached a parameter's
+    AccumulateGrad node from another stream than the node's."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        yield out
+    out.extend(str(w.message)[:120] for w in caught if "AccumulateGrad" in str(w.message))
+
+
+def _gap_text(gaps):
+    return ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+
+
+def _dp_train(dev, smi):
+    """Part (a) of phase 19 -> {path: launch counts}."""
+    from ihmr_tpu_torch.ops import bn_stats as K3
+    from ihmr_tpu_torch.parallel import make_mesh, replicate, shard_batch
+    from ihmr_tpu_torch.pipeline import (
+        DP_REPEAT_TOL, DP_TOL_RESNET50, deterministic_algorithms, dp_gaps, dp_grads, dp_within, grad_bits_gap,
+        make_train_bench_inputs, one_device_grads, planted_dp_fault,
+    )
+    from ihmr_tpu_torch.train.baseline import train_step, train_step_dp
+
+    inputs = make_train_bench_inputs(batch=DP_TRAIN_BATCH, image_size=DP_IMAGE, arch=DP_ARCH, bn_impl="pallas",
+                                     device=dev)
+    B = DP_TRAIN_BATCH
+    log(f"data-parallel training: {DP_ARCH} {DP_IMAGE}x{DP_IMAGE}, B={B}, fp32 without TF32, bn_impl=pallas (K3), "
+        f"phase 5's replayed batch and weights; the step's loss, gradients and running statistics against the "
+        f"one-device step (bounds {DP_TOL_RESNET50}: pipeline.py says why; 'grad' is the largest entry gap in "
+        "units of max(1, its tensor's largest |g|), printed beside the same gaps of the one-device step on the "
+        "batch with each pair of samples swapped, which only changes the order of its sums)")
+    one = one_device_grads(inputs)
+    log(f"  one device, again: gaps {_gap_text(dp_gaps(one_device_grads(inputs), one))}; pairs swapped: gaps "
+        f"{_gap_text(dp_gaps(one_device_grads(inputs, swapped=True), one))}")
+    counts, runs = {}, {}
+    meshes = (("dp_train", make_mesh([dev] * DP_SHARDS)), ("dp_train_all_cards", make_mesh()))
+    for path, mesh in meshes:
+        mismatches = []
+        zero_counts()
+        with _stream_mismatches(mismatches):
+            runs[path] = dp = dp_grads(inputs, mesh)
+        counts[path] = read_counts()
+        gaps = dp_gaps(dp, one)
+        log(f"  {mesh} ({mesh.size} shards of {B // mesh.size}): loss {dp.loss:.6f} vs {one.loss:.6f}; gaps "
+            f"{_gap_text(gaps)}; launches {counts[path]}; stream-mismatch warnings {len(mismatches)} (on {smi})")
+        check_counts(f"the data-parallel step over {mesh}", counts[path], exact_collision=0, nearest_centroid=0,
+                     bn_stats=53 * mesh.size)
+        if not dp_within(gaps, DP_TOL_RESNET50):
+            raise AssertionError(f"the data-parallel step over {mesh} disagrees with the one-device step: {gaps}")
+        if mismatches:
+            raise AssertionError(f"the data-parallel step over {mesh}: a gradient crossed streams: {mismatches[0]}")
+
+    # the same step again, recording K3's inputs on shard 0: it must repeat
+    # the first within DP_REPEAT_TOL, and K3 agree with its plain version there
+    mesh = meshes[0][1]
+    acts = []
+    with _shard0_bn_inputs(acts):
+        again = dp_grads(inputs, mesh)
+    spread = dp_gaps(again, runs["dp_train"])
+    # and twice under deterministic algorithms, where it must repeat to the bit
+    with deterministic_algorithms() as nondeterministic:
+        det = [dp_grads(inputs, mesh) for _ in range(2)]
+    bits = grad_bits_gap(det[1], det[0])
+    log(f"  {DP_SHARDS} shards, again: gaps to the first run {_gap_text(spread)} (bounds {DP_REPEAT_TOL}); twice "
+        f"under deterministic algorithms: largest gradient entry gap {bits:.3e}, loss {det[0].loss!r} and "
+        f"{det[1].loss!r}, gaps to the first run {_gap_text(dp_gaps(det[0], runs['dp_train']))}; operators without "
+        f"a deterministic version: {sorted(set(m[:100] for m in nondeterministic))}")
+    if not dp_within(spread, DP_REPEAT_TOL):
+        raise AssertionError(f"the data-parallel step does not repeat itself: {spread}")
+    if bits != 0.0 or det[0].loss != det[1].loss:
+        raise AssertionError(f"the data-parallel step under deterministic algorithms does not repeat to the bit: {bits}")
+    worst = (0.0, 0.0, 0.0)
+    for x in acts:
+        s, s2 = K3._launch_kernel(x)
+        ps, ps2 = K3.bn_stats_reference(x)
+        k_err = _bn_rel_errors(s, s2, x)
+        worst = (max(worst[0], k_err[0]), max(worst[1], k_err[1]),
+                 max(worst[2], float((s - ps).abs().max()), float((s2 - ps2).abs().max())))
+    log(f"  K3 on shard 0's {len(acts)} BatchNorm inputs ({tuple(acts[0].shape)} .. {tuple(acts[-1].shape)}): "
+        f"vs float64 sum err {worst[0]:.3e} of sum|x| (tol {BN_SUM_TOL}), sum-of-squares rel err {worst[1]:.3e} "
+        f"(tol {BN_SQ_TOL}); max |kernel - plain| {worst[2]:.3e}")
+    if len(acts) != 53 or worst[0] > BN_SUM_TOL or worst[1] > BN_SQ_TOL:
+        raise AssertionError(f"K3 on the shards' activations: {len(acts)} inputs, errors {worst}")
+    del acts
+
+    # the checks against planted faults: each must come out wrong
+    for fault in DP_PLANTED:
+        with planted_dp_fault(fault):
+            bad = dp_grads(inputs, mesh)
+        gaps = dp_gaps(bad, one)
+        log(f"  planted fault {fault!r}: gaps {_gap_text(gaps)} -> within the bounds: {dp_within(gaps, DP_TOL_RESNET50)}")
+        if dp_within(gaps, DP_TOL_RESNET50):
+            raise AssertionError(f"the data-parallel checks pass the planted fault {fault!r}: {gaps}")
+
+    # ms/step of the replayed step, one device and 4 shards on it, in turns
+    state_dp, batch_dp = replicate(inputs.state, mesh), shard_batch(inputs.batch, mesh)
+    steps = {
+        "one device": lambda: train_step(inputs.state, inputs.batch, inputs.mano_right, inputs.mano_left,
+                                         inputs.config)[1],
+        f"{DP_SHARDS} shards": lambda: train_step_dp(state_dp, batch_dp, inputs.mano_right, inputs.mano_left,
+                                                     inputs.config)[1],
+    }
+    for step in steps.values():
+        for _ in range(DP_WARMUP):
+            float(step()["total_loss"])
+    times = {name: [] for name in steps}
+    for name in (*steps, *reversed(steps)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [float(steps[name]()["total_loss"]) for _ in range(DP_STEPS)]
+        times[name].append((time.perf_counter() - t0) / DP_STEPS * 1e3)
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"{name}: non-finite losses {losses}")
+    log(f"  ms/step over {DP_STEPS} replayed steps after {DP_WARMUP} warm-ups, in turns (each step ends in a host "
+        "read of its loss): " + "; ".join(f"{name} {', '.join(f'{t:.3f}' for t in ts)} -> "
+                                          f"{B / min(ts) * 1e3:.3f} images/sec at best" for name, ts in times.items())
+        + f" (on {smi})")
+    del inputs, state_dp, batch_dp
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _dp_opt(dev, smi):
+    """Part (b) of phase 19 -> {path: launch counts}."""
+    from ihmr_tpu_torch.data import make_opt_inputs
+    from ihmr_tpu_torch.mano import synthetic_mano_model
+    from ihmr_tpu_torch.parallel import gather_to_host, make_mesh, replicate, shard_batch
+    from ihmr_tpu_torch.refine import OptConfig, opt_default, optimize_batch
+
+    mano = synthetic_mano_model(device=dev)
+    params, batch = make_opt_inputs(mano, batch=DP_OPT_BATCH, seed=0)
+    mesh = make_mesh([dev] * DP_SHARDS)
+    sharded = (replicate(mano, mesh), shard_batch(params, mesh), shard_batch(batch, mesh))
+    config = OptConfig(save_mid_freq=10)
+    B = DP_OPT_BATCH
+    log(f"data-parallel IHMR-OPT: bench.py's workload (synthetic hand, make_opt_inputs(seed=0), B={B}, opt_default, "
+        f"save_mid_freq=10, hoisted engine) over {mesh}, {DP_SHARDS} shards of {B // DP_SHARDS}")
+    counts = {}
+
+    short = tuple(dataclasses.replace(s, epoch=DP_SHORT_EPOCH) for s in opt_default)
+    one, _ = optimize_batch(mano, params, batch, short, config)
+    zero_counts()
+    out, _ = optimize_batch(*sharded, short, config)
+    counts["dp_opt_short"] = read_counts()
+    out = gather_to_host(out)
+    per_sample = np.max([np.abs(out[k] - v.cpu().numpy()).reshape(B, -1).max(axis=1) for k, v in one.items()], axis=0)
+    log(f"  {len(short)} x {DP_SHORT_EPOCH + 1} steps: largest per-sample param gap to the one-device run "
+        f"{per_sample.max():.3e} (tol {DP_OPT_TOL}), samples above it {int((per_sample > DP_OPT_TOL).sum())}; "
+        f"launches {counts['dp_opt_short']}")
+    check_counts("the sharded short OPT", counts["dp_opt_short"], exact_collision=DP_SHARDS, nearest_centroid=0,
+                 bn_stats=0)
+    if per_sample.max() > DP_OPT_TOL:
+        raise AssertionError(f"sharded OPT: {int((per_sample > DP_OPT_TOL).sum())} samples leave {DP_OPT_TOL}")
+
+    timed = tuple(dataclasses.replace(s, epoch=DP_TIMED_EPOCH) for s in opt_default)
+    rates = {name: [] for name in dict.fromkeys(DP_OPT_TURNS)}
+    collision = {name: [] for name in rates}
+    for name in DP_OPT_TURNS:
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        if name == "sharded":
+            out, results = optimize_batch(*sharded, timed, config)
+        else:
+            out, results = optimize_batch(mano, params, batch, timed, config)
+        torch.cuda.synchronize()
+        rates[name].append(B / (time.perf_counter() - t0))
+        c = read_counts()
+        check_counts(f"the timed OPT ({name})", c, exact_collision=DP_SHARDS if name == "sharded" else 1,
+                     nearest_centroid=0, bn_stats=0)
+        if name == "sharded":
+            counts["dp_opt"] = c
+            results = gather_to_host(results)
+            rv, lv = (torch.as_tensor(results[k], device=dev) for k in ("pred_right_hand_verts", "pred_left_hand_verts"))
+            err = _k1_plain_err(rv, lv, mano.faces, mano.faces.flip(-1),
+                                torch.as_tensor(results["collision_loss_origin_scale"], device=dev))
+            if err > DEPTH_TOL:
+                raise AssertionError(f"sharded OPT: final-pass depths {err:.3e} from K1's plain version")
+            bad = [k for k, v in results.items() if not np.isfinite(v).all()]
+            if bad:
+                raise AssertionError(f"sharded OPT: non-finite outputs {bad}")
+        collision[name].append(float(np.mean(np.asarray(results["collision_loss"] if name == "sharded"
+                                                        else results["collision_loss"].cpu()))))
+    log(f"  {len(timed)} x {DP_TIMED_EPOCH + 1} steps, in turns {DP_OPT_TURNS}: hands/sec " + "; ".join(
+        f"{name} {', '.join(f'{r:.3f}' for r in rs)}" for name, rs in rates.items())
+        + f"; final mean exact collision {collision}; the last sharded run's final depths through K1's plain "
+        f"version {err:.3e} (tol {DEPTH_TOL}); launches {counts['dp_opt']} (on {smi})")
+    return counts
+
+
+def phase_data_parallel(dev, smi):
+    """Phase 19: parallel/mesh.py at full width on the card."""
+    return {**_dp_train(dev, smi), **_dp_opt(dev, smi)}
+
+
 def _direct(fn, images, batch):
     """``fn`` on ``images`` padded to ``batch`` with the first image, as the
     broker pads -> the rows of ``images``."""
@@ -2030,6 +2285,7 @@ def main():
     phase_small_train(dev)
     phase_small_serve_track(dev)
     phase_small_collision(dev, smi)
+    dp_counts = phase_data_parallel(dev, smi)
 
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all, kernel builds included, on {smi}")
     print(smi, flush=True)
@@ -2043,14 +2299,17 @@ def main():
     # frames; train_bf16: the 20 bf16 train steps; coll_*: each run of phase
     # 13 and 18, cli_escalate / cli_grid phase 13's two commands;
     # cli_visualize_eval, cli_visualize, cli_display: phases 15-16;
-    # cli_two_process: the two ranks of phase 17, counted in each). K1's and
+    # cli_two_process: the two ranks of phase 17, counted in each; dp_*:
+    # phase 19's data-parallel runs: dp_train the step over 4 shards on the
+    # card, dp_train_all_cards over every card, dp_opt_short the short OPT
+    # and dp_opt the last timed one over 4 shards). K1's and
     # K2's times are one launch at the main path's shape; K3's are the sum
     # over the 53 launches of one train step ("ms_basis"), fp32 and (the
     # "_bf16" keys) bf16. "ms" is device time alone.
     by_path = dict(opt=opt_counts, opt_eval=opt_eval_counts, mlp=mlp_counts, train=train["counts"],
                    baseline_eval=train["loop_counts"], **cli_counts, serve=serve[False]["counts"],
                    serve_bf16=serve[True]["counts"], tracker=tracker_counts, train_bf16=train_bf16["counts"],
-                   **collision_counts)
+                   **collision_counts, **dp_counts)
     k3_bf16 = {f"{key}_bf16": v for key, v in train_bf16["k3_step"].items()}
     kernels = [
         dict(name="exact_collision", source="ihmr_tpu_torch/csrc/exact_collision.cu",

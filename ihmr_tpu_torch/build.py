@@ -28,6 +28,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Tuple
@@ -62,6 +63,9 @@ NO_CONTRACTION = ("image_ops", "jpeg_decode", "jpeg_encode")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _functions: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
+# the shard threads of parallel/mesh.py launch kernels at once: one build and
+# one load of a library, its entry points set up once
+_lock = threading.RLock()
 
 
 def nvcc_path() -> str:
@@ -118,10 +122,11 @@ def build_sources(jobs: Dict[str, Tuple[Path, Path]]) -> Dict[str, dict]:
 
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded shared library of kernel ``name``, built first if needed."""
-    if name not in _loaded:
-        build_all([name])
-        _loaded[name] = ctypes.CDLL(str(library_path(name)))
-    return _loaded[name]
+    with _lock:
+        if name not in _loaded:
+            build_all([name])
+            _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        return _loaded[name]
 
 
 def kernel_function(name: str, symbol: str, argtypes: List[type]):
@@ -129,12 +134,16 @@ def kernel_function(name: str, symbol: str, argtypes: List[type]):
     an int, its ctypes signature set once (setting it costs more host time
     than a launch)."""
     key = (name, symbol)
-    if key not in _functions:
-        fn = getattr(load_library(name), symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _functions[key] = fn
-    return _functions[key]
+    fn = _functions.get(key)
+    if fn is None:
+        with _lock:
+            if key not in _functions:
+                fn = getattr(load_library(name), symbol)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                _functions[key] = fn
+            fn = _functions[key]
+    return fn
 
 
 def _cpu_identity() -> bytes:

@@ -37,7 +37,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ihmr_tpu_torch.ops.bn_stats import batch_moments, bn_stats_reference
+from ihmr_tpu_torch.ops.bn_stats import batch_moments, bn_stats, bn_stats_reference
+from ihmr_tpu_torch.parallel.mesh import current_shard
 
 BN_IMPLS = ("stock", "fused", "pallas")
 BN_MOMENTUM = 0.9  # flax: running = momentum * running + (1 - momentum) * batch
@@ -62,6 +63,23 @@ def _moments(x: torch.Tensor, impl: str):
     return mean, torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
 
 
+def _global_moments(x: torch.Tensor, impl: str, shard):
+    """``_moments`` over the global batch of a data-parallel step, from
+    inside one shard of it (``parallel.mesh``): this shard's (sum x, sum
+    x^2) by ``impl`` (K3 for "pallas"; its plain version for "fused", and
+    for "stock" the sums that mean(x) and mean(x * x) take), summed over
+    the shards in shard order, then divided by the global count, and
+    flax's max(0, E[x^2] - E[x]^2) taken once on the global moments, as
+    the JAX package's one program over the global batch computes them. The
+    sum is differentiable (``Shard.all_sum``)."""
+    s, s2 = bn_stats(x) if impl == "pallas" else bn_stats_reference(x)
+    s, s2, n = shard.all_sum((s, s2, x.numel() // x.shape[1]))
+    mean = s / n
+    v = s2 / n - mean * mean
+    # jnp.maximum's derivative on K3's path, as batch_moments; clamp's on the others, as _moments
+    return mean, torch.maximum(torch.zeros_like(v), v) if impl == "pallas" else torch.clamp(v, min=0.0)
+
+
 class BatchNorm(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` (same state-dict names) whose train mode is flax's
     ``nn.BatchNorm``: batch moments by ``bn_impl`` (see ``_moments``),
@@ -71,7 +89,12 @@ class BatchNorm(nn.BatchNorm2d):
     unbiased n / (n - 1) variance. ``num_batches_tracked`` is not advanced
     (flax keeps no such count). Eval mode is ``nn.BatchNorm2d``'s path on
     fp32 inputs; on bf16 inputs it is the formula above with the running
-    statistics. The output has the input's dtype (see the module docstring)."""
+    statistics. The output has the input's dtype (see the module docstring).
+
+    In train mode inside a shard of a data-parallel step
+    (``parallel.mesh.Mesh.map``) the moments are the global batch's
+    (``_global_moments``), and only shard 0 updates the running statistics,
+    once, from them."""
 
     def __init__(self, num_features: int, bn_impl: str = "stock"):
         if bn_impl not in BN_IMPLS:
@@ -81,10 +104,12 @@ class BatchNorm(nn.BatchNorm2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            mean, var = _moments(x, self.bn_impl)
-            with torch.no_grad():
-                self.running_mean.copy_(BN_MOMENTUM * self.running_mean + (1.0 - BN_MOMENTUM) * mean)
-                self.running_var.copy_(BN_MOMENTUM * self.running_var + (1.0 - BN_MOMENTUM) * var)
+            shard = current_shard()
+            mean, var = _moments(x, self.bn_impl) if shard is None else _global_moments(x, self.bn_impl, shard)
+            if shard is None or shard.index == 0:
+                with torch.no_grad():
+                    self.running_mean.copy_(BN_MOMENTUM * self.running_mean + (1.0 - BN_MOMENTUM) * mean)
+                    self.running_var.copy_(BN_MOMENTUM * self.running_var + (1.0 - BN_MOMENTUM) * var)
         elif x.dtype == torch.float32:
             return super().forward(x)
         else:

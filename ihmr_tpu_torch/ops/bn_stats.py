@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import NamedTuple, Tuple
 
 import torch
@@ -53,8 +54,10 @@ SMALL_RUN_BYTES = 1024  # runs this short go by channel tiles
 LOADS = 8  # loads in flight a thread (csrc/bn_stats.cu kLoads): runs two rounds of LOADS // 2
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-# launches of the CUDA kernel (incremented only where the kernel is launched)
+# launches of the CUDA kernel (incremented only where the kernel is launched,
+# under the lock: the shard threads of parallel/mesh.py launch at once)
 launch_count = 0
+_count_lock = threading.Lock()
 
 
 def reset_launch_count() -> None:
@@ -145,20 +148,24 @@ _FORWARD_ARGS = (
 # per (device, stream): int32 ticket counters (one a channel on the runs
 # path), zeroed once on that stream; every launch leaves them 0. 4096 covers
 # every ResNet BatchNorm (at most 2048 channels) without a second allocation.
+# Shard threads (parallel/mesh.py) each launch on a stream of their own, so
+# each keeps its own counters; the lock makes the get-or-create one step.
 _tickets = {}
+_tickets_lock = threading.Lock()
 
 
 def _ticket_counters(device: torch.device, stream: torch.cuda.Stream, n: int) -> torch.Tensor:
     key = (device, stream.cuda_stream)
-    t = _tickets.get(key)
-    if t is None or t.numel() < n:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(
-                "bn_stats kernel: first launch on this stream inside a CUDA graph capture; its ticket counters "
-                "would be zeroed only when the graph replays. Launch it once on the capturing stream first."
-            )
-        with torch.cuda.stream(stream):
-            t = _tickets[key] = torch.zeros((max(n, 4096),), dtype=torch.int32, device=device)
+    with _tickets_lock:
+        t = _tickets.get(key)
+        if t is None or t.numel() < n:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "bn_stats kernel: first launch on this stream inside a CUDA graph capture; its ticket counters "
+                    "would be zeroed only when the graph replays. Launch it once on the capturing stream first."
+                )
+            with torch.cuda.stream(stream):
+                t = _tickets[key] = torch.zeros((max(n, 4096),), dtype=torch.int32, device=device)
     return t
 
 
@@ -190,7 +197,8 @@ def _launch_kernel(x: torch.Tensor, fn=None) -> Tuple[torch.Tensor, torch.Tensor
         )
     if err != 0:
         raise RuntimeError(f"bn_stats kernel launch failed: cudaError {err}")
-    launch_count += 1
+    with _count_lock:
+        launch_count += 1
     return buf[:C], buf[C : 2 * C]
 
 

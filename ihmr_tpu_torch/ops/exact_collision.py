@@ -30,6 +30,7 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Tuple
 
 import torch
@@ -42,8 +43,10 @@ TIE_REL = 1e-3  # relative d2 tolerance of the tie set
 _BIG = 1e30
 _EPS = 1e-12
 
-# launches of the CUDA kernel (incremented only where the kernel is launched)
+# launches of the CUDA kernel (incremented only where the kernel is launched,
+# under the lock: the shard threads of parallel/mesh.py launch at once)
 launch_count = 0
+_count_lock = threading.Lock()
 
 
 def reset_launch_count() -> None:
@@ -226,7 +229,8 @@ def _launch_kernel(q, tri, bounds, n_tri):
         )
     if err != 0:
         raise RuntimeError(f"exact_collision kernel launch failed: cudaError {err}")
-    launch_count += 1
+    with _count_lock:
+        launch_count += 1
     return depth, dirs
 
 

@@ -26,6 +26,7 @@ triangle instead.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -35,8 +36,10 @@ Q_TILE = 128  # queries padded to a multiple of this
 T_TILE = 128  # centroids per tile
 _BIG = 1e30
 
-# launches of the CUDA kernel (incremented only where the kernel is launched)
+# launches of the CUDA kernel (incremented only where the kernel is launched,
+# under the lock: the shard threads of parallel/mesh.py launch at once)
 launch_count = 0
+_count_lock = threading.Lock()
 
 
 def reset_launch_count() -> None:
@@ -117,7 +120,8 @@ def _launch_kernel(q: torch.Tensor, cent: torch.Tensor, n_tri: int) -> torch.Ten
         err = fn(q.data_ptr(), cent.data_ptr(), index.data_ptr(), N, Vp, Fp, n_tri, stream)
     if err != 0:
         raise RuntimeError(f"nearest_centroid kernel launch failed: cudaError {err}")
-    launch_count += 1
+    with _count_lock:
+        launch_count += 1
     return index
 
 

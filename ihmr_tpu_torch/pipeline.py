@@ -34,6 +34,12 @@ and ``run_tracker``): S streams of the full synthetic hand moving by a
 smoothed random walk through ``TwoHandTracker`` (``streaming_strategy``,
 ``save_mid_freq=5``), each frame's noisy detection blended into the warm
 start.
+
+Data parallelism (``parallel/mesh.py``): the baseline training batch
+sharded over a mesh, one step's loss, gradients and running statistics
+against the one-device step (``one_device_grads``, ``dp_grads``,
+``dp_gaps``); the OPT workload's ``optimize_batch`` on sharded params and
+batch.
 """
 
 from __future__ import annotations
@@ -66,6 +72,9 @@ from ihmr_tpu_torch.eval import Evaluator
 from ihmr_tpu_torch.mano.loader import mirror_mano_model, synthetic_mano_model
 from ihmr_tpu_torch.mano.model import ManoModel
 from ihmr_tpu_torch.models.encoder import InterHandEncoder, SubNetwork, build_mean_params, init_encoder_weights
+from ihmr_tpu_torch.models import resnet
+from ihmr_tpu_torch.parallel import mesh as mesh_module
+from ihmr_tpu_torch.parallel.mesh import Mesh, replicate, shard_batch
 from ihmr_tpu_torch.refine.mlp_engine import MLPCaches, flat_params, seed_from_backbone
 from ihmr_tpu_torch.refine.opt_engine import OptBatch, OptConfig, ParamDict, optimize_batch
 from ihmr_tpu_torch.refine.schedule import Stage, mlp_default, opt_default
@@ -75,7 +84,9 @@ from ihmr_tpu_torch.train.baseline import (
     BaselineState,
     TrainConfig,
     create_state,
+    dp_loss_and_grads,
     eval_step,
+    forward_and_loss,
     set_learning_rate,
     train_step,
 )
@@ -477,6 +488,155 @@ def short_train_gaps(a: Dict[str, object], b: Dict[str, object]) -> Dict[str, fl
         metrics=metrics, stats=stats, loss2=rel(a["loss2"], b["loss2"]),
         params=float(np.quantile(diffs, PARAMS_SHARE)), params_all=float(diffs.max()),
     )
+
+
+# One data-parallel train step against the one-device step on the same batch
+# and weights (``dp_gaps``). Whether a ReLU input within fp32 rounding of 0
+# lands on one side or the other decides part of the gradient, so a sound DP
+# step is not within 1e-4 of the one-device step; each bound below lies
+# between the largest gap a sound step showed and the smallest a faulty one
+# did, on the H100 (H100 80GB HBM3, 700 W). The faults: "race", the shards'
+# gradient terms summed into one tensor from several streams (the fault the
+# port once had; ``planted_dp_fault``), and "local", each BatchNorm on its
+# own shard's statistics. "loss" within 1e-5 relative (tests/test_parallel.py's
+# bound between the JAX package's DP and one-device steps) and "stats" within
+# 1e-5 (relative above 1, absolute below): the race leaves the forward alone,
+# so only the gradient bounds can catch it.
+# DP_TOL_RESNET50, ResNet-50 at 224x224, B=64 over 4 shards (chip_smoke.py
+# phase 19; the readings of ``python -m ihmr_tpu_torch.dp_bounds`` and of
+# phase 19). Sound: grad 4.78e-2, grad_l2 1.78e-2, the same in every run
+# (the one-device step on the batch with each pair of samples swapped, the
+# same sums in other orders, reads 3.6e-2 / 1.7e-2). Race, 10 runs: grad
+# 0.17 - 7.5, grad_l2 3.1e-2 - 0.14. Local: 1.85 / 1.04.
+# DP_TOL, ResNet-18 at 64x64, B=8 over 2 shards (tests/test_torch_port_mesh_cuda.py).
+# Sound: grad 6.43e-2, grad_l2 3.0e-3: one ReLU input of layer3.1 flips
+# between K3's sums over 8 samples and every other order (the same orders
+# otherwise agree within 1.3e-5). At this size the race showed nothing in 4
+# runs (the sound gaps to the bit); local: 1.82 / 1.12. So the bounds sit
+# above the sound readings with room for another card's rounding.
+# DP_REPEAT_TOL, the same DP step run again on the same inputs: cuDNN picks
+# algorithms whose sums are not fixed, so the one-device step spreads by
+# grad 6.6e-5 / grad_l2 9.1e-6 and the DP step by 2.9e-5 / 5.5e-6 (both
+# repeat to the bit under ``deterministic_algorithms``); the race's runs
+# lie 1.0 - 1.5 / 0.11 - 0.16 apart.
+DP_TOL = dict(loss=1e-5, grad=0.1, grad_l2=1e-2, stats=1e-5)
+DP_TOL_RESNET50 = dict(loss=1e-5, grad=0.075, grad_l2=2.2e-2, stats=1e-5)
+DP_REPEAT_TOL = dict(loss=1e-5, grad=1e-3, grad_l2=1e-4, stats=1e-5)
+
+
+@dataclass
+class StepGrads:
+    loss: float
+    grads: Dict[str, torch.Tensor]  # by parameter name
+    stats: Dict[str, torch.Tensor]  # running statistics after the step, by buffer name
+
+
+def _running_stats(encoder: InterHandEncoder) -> Dict[str, torch.Tensor]:
+    return {k: v.detach().clone() for k, v in encoder.named_buffers() if k.endswith(("running_mean", "running_var"))}
+
+
+def one_device_grads(inputs: TrainBenchInputs, swapped: bool = False) -> StepGrads:
+    """``train_step``'s loss and gradients on the whole batch without the
+    update, and the running statistics the step would leave; the encoder's
+    own statistics are restored. ``swapped``: on the batch with each pair of
+    samples (0 1, 2 3, ...) swapped, the same step summed in other orders."""
+    batch = inputs.batch
+    if swapped:
+        order = torch.arange(batch.img.shape[0], device=batch.img.device).reshape(-1, 2).flip(-1).reshape(-1)
+        batch = type(batch)(**{f.name: getattr(batch, f.name)[order] for f in dataclasses.fields(batch)})
+    encoder = inputs.state.encoder.train()
+    before = _running_stats(encoder)
+    total, _, _ = forward_and_loss(encoder, inputs.state.mean_params, batch, inputs.mano_right, inputs.mano_left,
+                                   inputs.config, train=True)
+    params = dict(encoder.named_parameters())
+    grads = torch.autograd.grad(total, list(params.values()))
+    after = _running_stats(encoder)
+    with torch.no_grad():
+        for k, b in encoder.named_buffers():
+            if k in before:
+                b.copy_(before[k])
+    return StepGrads(float(total.detach()), dict(zip(params, grads)), after)
+
+
+def dp_grads(inputs: TrainBenchInputs, mesh: Mesh) -> StepGrads:
+    """The same over ``mesh``: ``dp_loss_and_grads`` on the batch sharded
+    and the state replicated; the encoder's own statistics are restored."""
+    before = _running_stats(inputs.state.encoder)
+    loss, _, grads = dp_loss_and_grads(replicate(inputs.state, mesh), shard_batch(inputs.batch, mesh),
+                                       inputs.mano_right, inputs.mano_left, inputs.config)
+    after = _running_stats(inputs.state.encoder)
+    with torch.no_grad():
+        for k, b in inputs.state.encoder.named_buffers():
+            if k in before:
+                b.copy_(before[k])
+    return StepGrads(float(loss), grads, after)
+
+
+def dp_gaps(a: StepGrads, b: StepGrads) -> Dict[str, float]:
+    """The gaps DP_TOL, DP_TOL_RESNET50 and DP_REPEAT_TOL bound: "loss" relative; "grad"
+    the largest entry gap of any tensor over max(1, its largest |g| in
+    ``b``); "grad_l2" ||a - b|| / ||b|| over every gradient entry; "stats"
+    relative above 1 and absolute below."""
+    sq = sum(float(((a.grads[k] - g).double() ** 2).sum()) for k, g in b.grads.items())
+    norm = sum(float((g.double() ** 2).sum()) for g in b.grads.values())
+    return dict(
+        loss=abs(a.loss - b.loss) / abs(b.loss),
+        grad=max(float((a.grads[k] - g).abs().max() / g.abs().max().clamp_min(1.0)) for k, g in b.grads.items()),
+        grad_l2=(sq / norm) ** 0.5,
+        stats=max(float(((a.stats[k] - v).abs() / v.abs().clamp_min(1.0)).max()) for k, v in b.stats.items()),
+    )
+
+
+def dp_within(gaps: Dict[str, float], tol: Dict[str, float]) -> bool:
+    return all(gaps[k] <= v for k, v in tol.items())
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """torch's deterministic algorithms for the duration (cuDNN's included;
+    an operator without one warns instead of raising) -> the list of those
+    warnings' messages, filled on leaving."""
+    import warnings
+
+    saved = (torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    messages: List[str] = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield messages
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[2], saved[3]
+    messages.extend(str(w.message) for w in caught if "deterministic" in str(w.message))
+
+
+def grad_bits_gap(a: StepGrads, b: StepGrads) -> float:
+    """The largest |a - b| over every gradient entry (0.0: the same bits)."""
+    return max(float((a.grads[k] - g).abs().max()) for k, g in b.grads.items())
+
+
+@contextlib.contextmanager
+def planted_dp_fault(fault: str):
+    """A fault planted in the data-parallel step, for its checks to catch
+    (``dp_within`` must come out False). "race": the shards read the
+    parameters and each other's BatchNorm sums without views of their own
+    (``parallel.mesh._reader_view``), so that on the card the terms of a
+    gradient are summed from several streams: it changes only the backward,
+    and differently each run; on the CPU it only reorders some sums. "local": each
+    BatchNorm on its own shard's statistics."""
+    module, name, value = {
+        "race": (mesh_module, "_reader_view", lambda t: t),
+        "local": (resnet, "_global_moments", lambda x, impl, shard: resnet._moments(x, impl)),
+    }[fault]
+    saved = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
 
 
 # The predict function against a reference of the same dtype on the same

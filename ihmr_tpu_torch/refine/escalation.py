@@ -20,6 +20,12 @@ The bucket is part of the numbers: the loss is a batch mean, so the bucket
 size scales each sample's gradient (SGD feels it, and Adam through its
 eps), as in the JAX package. Pass 1's per-sample collision comes to the
 host once, for the flag decision; the merge stays on the device.
+
+In a shard of a data-parallel run (``parallel.mesh``) each shard flags and
+buckets its own samples, and the shards share their flagged counts, so that
+pass 2 weighs each shard's bucket mean by its share of the bucket the whole
+batch would have had: every flagged sample then takes the gradient scale of
+the one-device run.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from typing import Dict, Tuple
 import torch
 
 from ihmr_tpu_torch.mano.model import ManoModel
+from ihmr_tpu_torch.parallel.mesh import current_shard
 from ihmr_tpu_torch.refine.schedule import Stage
 
 _MIN_BUCKET = 8
@@ -90,6 +97,10 @@ def optimize_batch_escalated(
     coll1_host = coll1.cpu()
     flagged = torch.nonzero(coll1_host > config.escalate_collision).flatten()
     escalated = torch.zeros(bsz, dtype=torch.int32, device=device)
+    shard = current_shard()
+    # in a shard, every shard meets here, flagged or not: pass 2 weighs its
+    # bucket against the bucket of the whole batch's flagged samples
+    flagged_all = sum(shard.all_gather(flagged.numel())) if shard is not None else None
     if flagged.numel() == 0:
         return params1, {**results1, "escalated": escalated}
 
@@ -106,7 +117,11 @@ def optimize_batch_escalated(
     init2 = take(params1) if warm > 0.0 else take(params_init)
     strategy2 = warm_strategy(strategy, warm) if warm > 0.0 else strategy
     batch2 = type(batch)(**{f.name: getattr(batch, f.name)[idx] for f in dataclasses.fields(batch)})
-    params2, results2 = optimize_batch(model, init2, batch2, strategy2, grid_config(config))
+    if shard is None:
+        params2, results2 = optimize_batch(model, init2, batch2, strategy2, grid_config(config))
+    else:
+        with shard.batch(bucket, _bucket_size(flagged_all, shard.global_rows)):
+            params2, results2 = optimize_batch(model, init2, batch2, strategy2, grid_config(config))
 
     rows = torch.arange(k, device=device)
     better = results2["collision_loss"][:k] < coll1[idx[:k]]

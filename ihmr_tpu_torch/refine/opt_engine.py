@@ -43,6 +43,13 @@ is invariant to that uniform 1/B gradient scale (up to eps), so per-sample
 trajectories do not depend on the batch size. SGD's are scaled by 1/B, as
 in the JAX package.
 
+Data parallel: ``optimize_batch`` on ``Sharded`` params and batch
+(``parallel.mesh.shard_batch``) runs the engine once per shard, each on its
+device; inside a shard the loss is the shard's batch mean weighted by its
+share of the global batch (``_global_mean``), so each sample's gradient is
+the one-device run's, and the batch scalars of the results are the global
+means.
+
 Without the hoist the engine follows the JAX package's choice: the block
 engine on the full decode for Adam on a strategy whose stages share epoch,
 filter and select losses (its fused engine), else its per-stage programs
@@ -84,6 +91,7 @@ from ihmr_tpu_torch.ops.collision import (
     pair_tris_at,
 )
 from ihmr_tpu_torch.ops.grid_sdf import pair_depths_grid, pair_grids
+from ihmr_tpu_torch.parallel.mesh import Replicated, Sharded, current_shard, replicate
 from ihmr_tpu_torch.refine.adam import SGD, Adam
 from ihmr_tpu_torch.refine.schedule import OPT_DEFAULT_LOSS_WEIGHTS, Stage
 
@@ -251,6 +259,15 @@ def _strided_faces(model: ManoModel, fsub: int):
     makes that a uniform sub-mesh of the FULL vertex array (queries are
     strided, the meshes stay full)."""
     return model.faces[::fsub], model.faces.flip(-1)[::fsub]
+
+
+def _global_mean(total: torch.Tensor) -> torch.Tensor:
+    """The loss whose gradient the optimizer takes: inside a shard of a
+    data-parallel run (``parallel.mesh``) the shard's batch mean weighted by
+    its share of the global batch, which makes it the global batch mean's
+    term for these samples; elsewhere the batch mean itself."""
+    shard = current_shard()
+    return total if shard is None else total * shard.share
 
 
 def compute_losses(
@@ -579,7 +596,7 @@ def run_stage(
             model, {**frozen, **leaves}, batch, w, config, in_loop=True, fwd_fn=fwd_fn,
             coll_parity=parity, skip_zero_collision=skip_zero_collision, **payload,
         )
-        grads = torch.autograd.grad(total, list(leaves.values()))
+        grads = torch.autograd.grad(_global_mean(total), list(leaves.values()))
         return {k: a.detach() for k, a in aux.items()}, dict(zip(leaves, grads))
 
     def update(grads):
@@ -659,7 +676,7 @@ def run_stage_program(
     def grads_at():
         leaves = {k: x.requires_grad_(True) for k, x in subset.items()}
         total, aux = compute_losses(model, {**frozen, **leaves}, batch, w, config, in_loop=True)
-        grads = torch.autograd.grad(total, list(leaves.values()))
+        grads = torch.autograd.grad(_global_mean(total), list(leaves.values()))
         return {k: a.detach() for k, a in aux.items()}, dict(zip(leaves, grads))
 
     aux, grads = grads_at()
@@ -708,7 +725,16 @@ def optimize_batch(
     losses, the block engine on the full decode (JAX's fused engine); else
     the per-stage programs (``run_stage_program``). With
     ``escalate_collision > 0`` this is pass 1 of the two-pass grid escalation
-    (refine/escalation.py), which adds ``results["escalated"]``."""
+    (refine/escalation.py), which adds ``results["escalated"]``.
+
+    On ``Sharded`` params and batch (``parallel.mesh.shard_batch``; the model
+    replicated or on every shard's device) each shard runs the above on its
+    device, and the results come back ``Sharded``: per-sample entries in
+    their shards, the batch scalars (``total_loss``, ``joints_2d_loss``,
+    ``joints_3d_loss``, ``hand_trans_loss``) the global batch means in
+    every shard."""
+    if isinstance(params_init, Sharded):
+        return _optimize_sharded(model, params_init, batch, strategy, config)
     if config.collision_backend == "2level" and config.loop_collision_cluster < 1:
         raise ValueError('collision_backend="2level" needs loop_collision_cluster > 0 (the faces of a cluster)')
     if config.escalate_collision > 0.0:
@@ -753,3 +779,23 @@ def optimize_batch(
         "hand_trans_loss": aux["hand_trans_loss"],
     }
     return params, results
+
+
+def _optimize_sharded(
+    model, params: Sharded, batch: Sharded, strategy: Tuple[Stage, ...], config: OptConfig
+) -> Tuple[Sharded, Sharded]:
+    """``optimize_batch`` over a mesh: one engine per shard (``Mesh.map``),
+    then each batch scalar of the results replaced by the shards' values
+    weighted by their shares and added in shard order."""
+    mesh = params.mesh
+    if not isinstance(batch, Sharded) or batch.mesh is not mesh:
+        raise ValueError("optimize_batch: params and batch must be sharded over one mesh")
+    if not isinstance(model, Replicated):
+        model = replicate(model, mesh)
+    outs = mesh.map(optimize_batch, model, params, batch, strategy, config)
+    rows = params.rows()
+    scalars = [k for k, v in outs[0][1].items() if v.dim() == 0]
+    home = mesh.devices[0]
+    means = {k: sum(r[k].to(home) * (n / sum(rows)) for (_, r), n in zip(outs, rows)) for k in scalars}
+    results = [{**r, **{k: means[k].to(d) for k in scalars}} for (_, r), d in zip(outs, mesh.devices)]
+    return Sharded(mesh, [p for p, _ in outs]), Sharded(mesh, results)

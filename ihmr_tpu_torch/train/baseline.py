@@ -18,6 +18,16 @@ Train-mode BatchNorm is flax's (``models/resnet.py::BatchNorm``); with
 ``bn_impl="pallas"`` every one of them launches the kernel K3. ``eval_step``
 runs the exact collision metric with the ray-parity filter: backend "auto"
 is the exact kernel K1 on every device, as it is in JAX on the TPU.
+
+Data parallel (``dp_loss_and_grads``, ``train_step_dp``): the JAX package's
+train step on a sharded batch with replicated params, one program over the
+global batch. Here each shard of the mesh (``parallel.mesh.Mesh.map``) runs
+the forward and the loss of its part on its device, reading the primary
+encoder's parameters through differentiable copies; its BatchNorms sum
+their statistics over the shards. Every loss term is a plain batch mean, so
+the global loss is the sum of the shard losses weighted by their shares of
+the batch, and one ``autograd.grad`` of it gives the global gradient on the
+primary's parameters.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ from ihmr_tpu_torch.mano.layer import HandParams, two_hand_decode
 from ihmr_tpu_torch.mano.model import ManoModel
 from ihmr_tpu_torch.models.encoder import InterHandEncoder
 from ihmr_tpu_torch.ops.collision import collision_loss
+from ihmr_tpu_torch.parallel.mesh import Replicated, Sharded, current_shard, replicate
 from ihmr_tpu_torch.refine.adam import Adam
 
 
@@ -216,11 +227,88 @@ def train_step(
     total, metrics, _ = forward_and_loss(encoder, state.mean_params, batch, mano_right, mano_left, config, train=True)
     params = dict(encoder.named_parameters())
     grads = torch.autograd.grad(total, list(params.values()))
-    new = state.adam.step({k: v.detach() for k, v in params.items()}, dict(zip(params, grads)), state.lr)
+    _adam_update(state, dict(zip(params, grads)))
+    return state, {k: v.detach() for k, v in metrics.items()}
+
+
+def _adam_update(state: BaselineState, grads: Dict[str, torch.Tensor]) -> None:
+    """One Adam step at ``state.lr`` on the encoder's parameters, in place."""
+    params = dict(state.encoder.named_parameters())
+    new = state.adam.step({k: v.detach() for k, v in params.items()}, grads, state.lr)
     with torch.no_grad():
         for k, v in params.items():
             v.copy_(new[k])
-    return state, {k: v.detach() for k, v in metrics.items()}
+
+
+def dp_loss_and_grads(
+    state: Replicated,
+    batch: Sharded,
+    mano_right,
+    mano_left,
+    config: TrainConfig,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """The data-parallel train step's loss and gradients, without the update
+    -> (total loss, metrics, {parameter name: gradient}), all on the primary
+    encoder's device.
+
+    ``state``: ``replicate(state, mesh)`` of a ``BaselineState``; its
+    ``primary`` holds the parameters and the running statistics, each copy's
+    encoder is the module (with no weights of its own) that the shard calls
+    with the primary's tensors. ``batch``: ``shard_batch(batch, mesh)``. The
+    MANO models: replicated, or replicated here. Train-mode BatchNorm takes
+    the global batch's moments and updates the primary's running statistics
+    once."""
+    mesh = batch.mesh
+    mano_right, mano_left = (m if isinstance(m, Replicated) else replicate(m, mesh) for m in (mano_right, mano_left))
+    primary = state.primary
+    params = dict(primary.encoder.named_parameters())
+    buffers = dict(primary.encoder.named_buffers())
+    home = next(iter(params.values())).device
+    # every shard reads the parameters through its own differentiable read
+    # made here, on the caller's stream, so that the terms of a parameter's
+    # gradient are summed on that one stream (``parallel.mesh._reader_view``)
+    reads = mesh.reads(params)
+
+    def shard_loss(copy: BaselineState, part: BaselineBatch, mano_r, mano_l):
+        shard = current_shard()
+        # the running statistics: shard 0's BatchNorms update them, the
+        # others' do not read them in train mode
+        tensors = {**reads[shard.index], **{k: b.to(shard.device) for k, b in buffers.items()}}
+        encoder = copy.encoder.train()
+
+        def call(*args, **kwargs):
+            return torch.func.functional_call(encoder, tensors, args, kwargs)
+
+        total, metrics, _ = forward_and_loss(call, copy.mean_params, part, mano_r, mano_l, config, train=True)
+        return total, metrics, tensors
+
+    outs = mesh.map(shard_loss, state, batch, mano_right, mano_left)
+    with torch.no_grad():  # shard 0's statistics, where its device is not the primary's
+        for k, b in buffers.items():
+            if outs[0][2][k] is not b:
+                b.copy_(outs[0][2][k])
+    rows = batch.rows()
+    weights = [n / sum(rows) for n in rows]
+    total = sum(w * t.to(home) for w, (t, _, _) in zip(weights, outs))
+    metrics = {k: sum(w * m[k].detach().to(home) for w, (_, m, _) in zip(weights, outs)) for k in outs[0][1]}
+    grads = torch.autograd.grad(total, list(params.values()))
+    return total.detach(), metrics, dict(zip(params, grads))
+
+
+def train_step_dp(
+    state: Replicated,
+    batch: Sharded,
+    mano_right,
+    mano_left,
+    config: TrainConfig,
+) -> Tuple[Replicated, Dict[str, torch.Tensor]]:
+    """``train_step`` over a mesh: the global batch's loss and gradients
+    (``dp_loss_and_grads``), then one Adam step at ``primary.lr`` on the
+    primary's parameters, which every shard reads at its next step. Returns
+    (state, metrics) as ``train_step``."""
+    _, metrics, grads = dp_loss_and_grads(state, batch, mano_right, mano_left, config)
+    _adam_update(state.primary, grads)
+    return state, metrics
 
 
 @torch.no_grad()

@@ -4,9 +4,10 @@
 The ranks meet over a ``torch.distributed`` gloo group started from the JAX
 package's coordinator arguments (``initialize("127.0.0.1:PORT", 2, rank)``)
 and exercise ``barrier``, the file-pickle Evaluator gather (rank 0 merges
-every rank's results in rank order, the others get None) and the MLP cache
+every rank's results in rank order, the others get None), the MLP cache
 sync (rank-strided fills union into a full cache, the other rank's entries
-exact). Each process has a time limit. Without a coordinator ``initialize``
+exact) and ``parallel.mesh.gather_to_host``, which stacks every rank's
+result in rank order (JAX's ``process_allgather``). Each process has a time limit. Without a coordinator ``initialize``
 is a no-op returning (0, 1), as the JAX package's.
 """
 
@@ -69,6 +70,18 @@ for name, d in PARAM_GROUP_DIMS.items():
 for j, k in enumerate(_TRACKED):
     assert bool((caches.prev_losses[k][other] == other + j).all()), k
 print("CACHES_OK")
+
+import numpy as np
+
+from ihmr_tpu_torch.parallel import gather_to_host, make_mesh, shard_batch
+
+mesh = make_mesh(["cpu"] * 2)
+got = gather_to_host(shard_batch({"x": torch.arange(4.0) + 10 * rank}, mesh))
+assert got["x"].shape == (2, 4), got
+np.testing.assert_array_equal(got["x"], [[0, 1, 2, 3], [10, 11, 12, 13]])
+got = gather_to_host((torch.tensor(rank, dtype=torch.int32),))
+np.testing.assert_array_equal(got[0], [0, 1])
+print("MESH_GATHER_OK")
 dist.barrier("end")
 print("WORKER_DONE")
 """
@@ -95,7 +108,7 @@ def test_two_process_gather_and_cache_sync(tmp_path):
             p.kill()
     for p, (out, err) in zip(procs, outs):
         assert p.returncode == 0, f"rank failed:\n{out}\n{err[-3000:]}"
-        assert "WORKER_DONE" in out and "CACHES_OK" in out
+        assert "WORKER_DONE" in out and "CACHES_OK" in out and "MESH_GATHER_OK" in out
     assert "GATHER_OK" in outs[0][0]
     assert not [f for f in os.listdir(tmp_path) if f.startswith(".gather_test")]  # rank 0 removed the files
 
