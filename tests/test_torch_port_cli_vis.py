@@ -19,7 +19,9 @@ PNGs), the synthetic hand, ResNet-18 at 64x64, batches of 2, in-process:
     ``train-baseline``: the samples each run reads are those the JAX
     package's ``BatchLoader`` gives rank r over its dataset padded to
     batch x world_size (train: shuffled, epoch 1, last batch dropped); a
-    rank above 0 writes no checkpoint, every rank its evaluation pkl.
+    rank above 0 writes no checkpoint, every rank its evaluation pkl. JAX's
+    ``OPTDataset`` reads through its native letterbox, built privately for
+    this module (``tests/torch_port_native.py``).
 """
 
 import argparse
@@ -45,6 +47,7 @@ from ihmr_tpu_torch.train import loops
 from ihmr_tpu_torch.utils import io_utils
 from ihmr_tpu_torch.utils import train_visuals
 from tests.test_data import _write_synthetic_corpus
+from tests.torch_port_native import private_jax_native  # noqa: F401
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 N = 5
@@ -185,7 +188,7 @@ def _jax_shard(work, dataset_cls, rank, train=False, **extra):
 
 
 @pytest.mark.parametrize("command,rank", [("test-baseline", 1), ("optimize", 0), ("train-baseline", 1)])
-def test_rank_reads_the_jax_loaders_shard(tested, work, tmp_path, monkeypatch, command, rank):
+def test_rank_reads_the_jax_loaders_shard(private_jax_native, tested, work, tmp_path, monkeypatch, command, rank):
     seen = []
     convert = "_to_opt_batch" if command == "optimize" else "_to_baseline_batch"
     inner = getattr(loops, convert)

@@ -10,7 +10,8 @@ Bounds, per test:
     for byte (the datasets need one uint8 level; every pixel of every case
     here is exact with cv2 5.0);
   * the native letterbox: bit-equal to ``ihmr_tpu.native`` (JAX's native
-    library must be built, so that JAX takes that path too);
+    library built privately for this module, ``tests/torch_port_native.py``,
+    so that JAX takes that path too and never cv2 in its place);
   * dataset items: every non-image array exactly equal, or within 1e-6 where
     the native letterbox's float32 ratio enters (the 2D joints of the
     prediction datasets); images within one uint8 level (2/255 after the
@@ -48,6 +49,7 @@ from ihmr_tpu_torch.train import checkpoint as TCK
 from ihmr_tpu_torch.utils import io_utils
 from tests.test_data import _write_synthetic_corpus
 from tests.test_mano_loader import _write_fake_mano
+from tests.torch_port_native import jax_native_built_in, private_jax_native  # noqa: F401
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 LEVEL = 2.0 / 255.0  # one uint8 level after the [-1, 1] normalization
@@ -140,22 +142,63 @@ def test_resize_linear_matches_cv2(src, dst):
         np.testing.assert_array_equal(image_io.resize_linear(img, dst), cv2.resize(img, dst))
 
 
-def test_native_letterbox_bit_equal():
-    """The port's copy of the native library against the JAX package's, on
-    both letterbox branches and an odd size: images and ratios bit-equal."""
-    assert jax_native.available(), "the JAX package's native library did not build"
+def _assert_letterbox_bit_equal(jax_lib):
     rng = np.random.RandomState(5)
     for shape in ((256, 192, 3), (192, 256, 3), (120, 90, 3), (31, 57, 3)):
         img = (rng.rand(*shape) * 255).astype(np.uint8)
         ours, r_ours = native.letterbox_normalize(img, 224)
-        ref, r_ref = jax_native.letterbox_normalize(img, 224)
+        ref, r_ref = jax_lib.letterbox_normalize(img, 224)
         np.testing.assert_array_equal(ours, ref)
         assert r_ours == r_ref
         batch = np.stack([img, img[::-1]])
-        (o, ro), (f, rf) = native.letterbox_normalize_batch(batch, 64), jax_native.letterbox_normalize_batch(batch, 64)
+        (o, ro), (f, rf) = native.letterbox_normalize_batch(batch, 64), jax_lib.letterbox_normalize_batch(batch, 64)
         np.testing.assert_array_equal(o, f)
         np.testing.assert_array_equal(ro, rf)
-        np.testing.assert_array_equal(native.normalize_batch(batch), jax_native.normalize_batch(batch))
+        np.testing.assert_array_equal(native.normalize_batch(batch), jax_lib.normalize_batch(batch))
+
+
+def test_native_letterbox_bit_equal(private_jax_native):
+    """The port's copy of the native library against the JAX package's, on
+    both letterbox branches and an odd size: images and ratios bit-equal."""
+    _assert_letterbox_bit_equal(private_jax_native)
+
+
+def _truncate_shared_library(tmp_path, monkeypatch):
+    """What a worker that loses the build race meets: a zero-length
+    ``_data_kernels.so`` newer than its source at JAX's build path (here a
+    stand-in path), and no load tried yet in this process."""
+    from ihmr_tpu.native import build as jax_build
+
+    lib = tmp_path / "_data_kernels.so"
+    lib.write_bytes(b"")
+    fresh = os.path.getmtime(jax_build.SRC) + 60
+    os.utime(lib, (fresh, fresh))
+    monkeypatch.setattr(jax_build, "LIB", str(lib))
+    monkeypatch.setattr(jax_native, "_tried", False)
+    monkeypatch.setattr(jax_native, "_lib", None)
+    return lib
+
+
+def test_truncated_shared_library_reads_unavailable(tmp_path, monkeypatch):
+    """The fault itself: JAX's ``build()`` takes the truncated file as
+    built, ``ctypes`` refuses it, and ``available()`` reads False (JAX's
+    datasets then letterbox with cv2)."""
+    lib = _truncate_shared_library(tmp_path, monkeypatch)
+    assert not jax_native.available()
+    assert lib.stat().st_size == 0  # not rebuilt
+
+
+def test_private_build_survives_a_truncated_shared_library(tmp_path, monkeypatch, corpus):
+    """Through ``tests/torch_port_native.py`` on the same truncated file: the
+    letterbox bit-equal and an MLP item through JAX's native branch; after
+    it, JAX's module is back on the truncated file."""
+    lib = _truncate_shared_library(tmp_path, monkeypatch)
+    with jax_native_built_in(tmp_path / "private") as jax_lib:
+        _assert_letterbox_bit_equal(jax_lib)
+        j, t = _datasets("MLPDataset", corpus, pred_path="pred.pkl", input_size=224, anno_path="anno.pkl")
+        _compare_items(t[0], j[0], joints_tol=1e-6)
+    assert not jax_native.available() and lib.stat().st_size == 0
+    assert not np.array_equal(t[0]["img"], j[0]["img"])  # JAX's cv2 fallback: what the bound would have met
 
 
 @pytest.mark.parametrize("hw", [(120, 90), (90, 120), (224, 224), (300, 200)])
@@ -243,11 +286,11 @@ def test_baseline_dataset_matches_jax(corpus, train):
     ],
     ids=["opt", "mlp", "mlp_use_opt_params", "mlp_pseudo_gt_fallback"],
 )
-def test_prediction_datasets_match_jax(corpus, kind, cfg):
+def test_prediction_datasets_match_jax(private_jax_native, corpus, kind, cfg):
     """OPT and MLP items through the native letterbox. Bound: images
     bit-equal, 2D joints within 1e-6 (the kernel's float32 ratio), the rest
     equal."""
-    assert jax_native.available()
+    assert private_jax_native.available()
     j, t = _datasets(kind, corpus, pred_path="pred.pkl", input_size=224, **cfg)
     for i in range(len(j)):
         _compare_items(t[i], j[i], joints_tol=1e-6)

@@ -41,6 +41,11 @@ params, with JAX's payload, is held to JAX's gradient (a jitted
 ``compute_losses`` gradient), and the port's payload built from JAX's
 params to JAX's recorded payload.
 
+``lockstep_stages(..., port_entry=...)`` runs each side on its own chain
+instead (the port from its own params, stage after stage), as its
+``optimize_batch`` runs them: ``tests/test_torch_port_tracker_jax.py``
+replays a tracker's frame so.
+
 The tier-1 case below runs the orient stage (collision in the loop, the L1
 2D residuals) at B=2 for 21 steps with one JAX compile (the pose stage's
 program takes ~85 s to compile on one core); a second test holds the
@@ -208,12 +213,12 @@ def torch_batch(jb):
     return OptBatch(**{f.name: T(getattr(jb, f.name)) for f in dataclasses.fields(OptBatch)})
 
 
-def run_jax_stage(jm, entry, jb, stage, check_unrecorded=False):
+def run_jax_stage(jm, entry, jb, stage, check_unrecorded=False, save_mid_freq=10):
     """JAX's hoisted stage program from ``entry`` -> (result params as numpy,
     the JaxRecorder). With ``check_unrecorded`` the program also runs without
     the recorder (a second compile) and the two results must have the same
     bits."""
-    cfg = JE.OptConfig(save_mid_freq=10)
+    cfg = JE.OptConfig(save_mid_freq=save_mid_freq)
     rec = JaxRecorder(stage.update_params)
     with rec.patched():
         out = jax.tree_util.tree_map(np.asarray, _jax_stage(jm, entry, jb, stage=stage, config=cfg))
@@ -224,13 +229,13 @@ def run_jax_stage(jm, entry, jb, stage, check_unrecorded=False):
     return out, rec
 
 
-def run_port_stage(tm, entry, tb, stage, hoist=True):
+def run_port_stage(tm, entry, tb, stage, hoist=True, save_mid_freq=10):
     """The port's ``run_stage`` from ``entry`` (torch tensors), on its hoisted
     engine or (``hoist=False``) its full decode -> (result params, the
     engine_drift Recorder)."""
     rec = Recorder()
     with rec.patched():
-        out = TE.run_stage(tm, entry, tb, stage, OptConfig(stage_hoist_decode=hoist))
+        out = TE.run_stage(tm, entry, tb, stage, OptConfig(stage_hoist_decode=hoist, save_mid_freq=save_mid_freq))
     return out, rec
 
 
@@ -250,7 +255,7 @@ def _snapshot_kept(evals, best, groups, freq):
     return kept
 
 
-def _port_at(tm, tb, stage, entry, params, payload, hoist=True):
+def _port_at(tm, tb, stage, entry, params, payload, hoist=True, save_mid_freq=10):
     """The port's in-loop loss at ``params`` (numpy, the stage's groups) with
     the frozen ``payload`` -> (gradients, contact set, closest-point regions,
     L1 signs, finger signs) as numpy (None for a term the weights skip)."""
@@ -258,16 +263,17 @@ def _port_at(tm, tb, stage, entry, params, payload, hoist=True):
     fwd = TE._make_stage_forward(tm, stage, entry) if hoist else None
     frozen = {k: v for k, v in entry.items() if k not in stage.update_params}
     leaves = {k: T(params[k]).requires_grad_(True) for k in stage.update_params}
+    cfg = OptConfig(save_mid_freq=save_mid_freq)
     with rec.patched():
-        total, _ = TE.compute_losses(tm, {**frozen, **leaves}, tb, stage.weights, OptConfig(), in_loop=True,
+        total, _ = TE.compute_losses(tm, {**frozen, **leaves}, tb, stage.weights, cfg, in_loop=True,
                                      coll_tris=payload, fwd_fn=fwd)
     grads = torch.autograd.grad(total, list(leaves.values()))
     first = [lst[0].numpy() if lst else None for lst in (rec.contacts, rec.regions, rec.l1_signs, rec.finger_signs)]
     return ({k: g.numpy() for k, g in zip(leaves, grads)}, *first)
 
 
-def _jax_grad(jm, jb, stage):
-    cfg = JE.OptConfig(save_mid_freq=10)
+def _jax_grad(jm, jb, stage, save_mid_freq=10):
+    cfg = JE.OptConfig(save_mid_freq=save_mid_freq)
 
     @jax.jit
     def grad(entry, sub, tris):
@@ -279,19 +285,23 @@ def _jax_grad(jm, jb, stage):
     return grad
 
 
-def lockstep_stage(jm, tm, jentry, jb, tb, stage, check_unrecorded=False, hoist=True, check_rebuilds=True):
-    """One stage on both sides from ``jentry`` -> (report dict, JAX's result).
-    ``hoist=False`` runs the port's full decode against JAX's hoisted engine;
+def lockstep_stage(jm, tm, jentry, jb, tb, stage, check_unrecorded=False, hoist=True, check_rebuilds=True,
+                   save_mid_freq=10, port_entry=None):
+    """One stage on both sides from ``jentry`` -> (report dict, JAX's result,
+    the port's result). ``port_entry`` starts the port from its own params
+    instead (the checks at JAX's params keep JAX's entry); ``hoist=False``
+    runs the port's full decode against JAX's hoisted engine;
     ``check_rebuilds=False`` skips the port-at-JAX's-params checks at every
-    rebuild (and with them a compile of JAX's gradient)."""
+    rebuild (and with them a compile of JAX's gradient); ``save_mid_freq`` is
+    both engines' snapshot interval (10, ``opt_default``'s; the tracker's 5)."""
     groups = list(stage.update_params)
-    freq = JE.OptConfig().save_mid_freq
-    jout, jrec = run_jax_stage(jm, jentry, jb, stage, check_unrecorded)
+    jout, jrec = run_jax_stage(jm, jentry, jb, stage, check_unrecorded, save_mid_freq)
     tentry = {k: T(v) for k, v in jentry.items()}
-    tout, trec = run_port_stage(tm, tentry, tb, stage, hoist)
+    start = tentry if port_entry is None else {k: T(v) for k, v in port_entry.items()}
+    tout, trec = run_port_stage(tm, start, tb, stage, hoist, save_mid_freq)
     tout = {k: v.numpy() for k, v in tout.items()}
     n = len(jrec.evals)
-    tevals = [{k: tentry[k].numpy() for k in groups}] + [{k: s[k].numpy() for k in groups} for s in trec.steps[:-1]]
+    tevals = [{k: start[k].numpy() for k in groups}] + [{k: s[k].numpy() for k in groups} for s in trec.steps[:-1]]
     assert len(tevals) == n == stage.epoch + 1, (len(tevals), n)
     assert len(trec.picks) == len(jrec.picks) and [p[0] for p in trec.picks] == [p[0] for p in jrec.picks]
     gaps = np.stack([_gap(a, b, groups) for a, b in zip(jrec.evals, tevals)])  # (n, B)
@@ -311,16 +321,17 @@ def lockstep_stage(jm, tm, jentry, jb, tb, stage, check_unrecorded=False, hoist=
     for (t, jr, jl), (_, tr, tl) in zip(jrec.picks, trec.picks):
         pick_diff[t] = (jr != tr.numpy()).sum(1) + (jl != tl.numpy()).sum(1)
     diff = {"nearest-face pick": pick_diff, **diff}
-    kept_j = _snapshot_kept(jrec.evals, jout, groups, freq)
-    kept_t = _snapshot_kept(tevals, tout, groups, freq)
+    kept_j = _snapshot_kept(jrec.evals, jout, groups, save_mid_freq)
+    kept_t = _snapshot_kept(tevals, tout, groups, save_mid_freq)
     end_gap = _gap(jout, tout, groups)
 
     # at every rebuild: the port from JAX's params, with JAX's payload
-    jgrad = _jax_grad(jm, jb, stage) if check_rebuilds else None
+    jgrad = _jax_grad(jm, jb, stage, save_mid_freq) if check_rebuilds else None
     rebuild_checks = []
     for r, t in enumerate(rebuilds if check_rebuilds else []):
         jpay = (*jrec.tris[r], jrec.scales[r])
-        g_t, c_t, r_t, l1_t, f_t = _port_at(tm, tb, stage, tentry, jrec.evals[t], tuple(T(x) for x in jpay), hoist)
+        g_t, c_t, r_t, l1_t, f_t = _port_at(tm, tb, stage, tentry, jrec.evals[t], tuple(T(x) for x in jpay), hoist,
+                                            save_mid_freq)
         g_j = jgrad(jentry, jrec.evals[t], tuple(jnp.asarray(x) for x in jpay))
         gscale = max(float(np.abs(np.asarray(g_j[k])).max()) for k in groups)
         ggap = max(float(np.abs(g_t[k] - np.asarray(g_j[k])).max()) for k in groups) / max(gscale, 1e-30)
@@ -360,9 +371,9 @@ def lockstep_stage(jm, tm, jentry, jb, tb, stage, check_unrecorded=False, hoist=
             t = max(t_over - 1, 0)
             r = max(i for i, s0 in enumerate(rebuilds) if s0 <= t) if rebuilds else None
             tpay = None if r is None else tuple(T(x) for x in (*jrec.tris[r], jrec.scales[r]))
-            g_t = _port_at(tm, tb, stage, tentry, jrec.evals[t], tpay, hoist)[0]
-            g_j = (jgrad or _jax_grad(jm, jb, stage))(jentry, jrec.evals[t], None if r is None else tuple(
-                jnp.asarray(x) for x in (*jrec.tris[r], jrec.scales[r])))
+            g_t = _port_at(tm, tb, stage, tentry, jrec.evals[t], tpay, hoist, save_mid_freq)[0]
+            jpay = None if r is None else tuple(jnp.asarray(x) for x in (*jrec.tris[r], jrec.scales[r]))
+            g_j = (jgrad or _jax_grad(jm, jb, stage, save_mid_freq))(jentry, jrec.evals[t], jpay)
             drift_grad_gap = max(float(np.abs(g_t[k][b] - np.asarray(g_j[k])[b]).max()) for k in groups) / max(
                 max(float(np.abs(np.asarray(g_j[k])[b]).max()) for k in groups), 1e-30)
             verdict = ("drift: no choice differs and the gradients agree at JAX's params"
@@ -379,7 +390,7 @@ def lockstep_stage(jm, tm, jentry, jb, tb, stage, check_unrecorded=False, hoist=
             t = first[1]
             r = max(i for i, s0 in enumerate(rebuilds) if s0 <= t) if rebuilds else None
             tpay = None if r is None else tuple(T(x) for x in (*jrec.tris[r], jrec.scales[r]))
-            _, c_t, r_t, l1_t, f_t = _port_at(tm, tb, stage, tentry, jrec.evals[t], tpay, hoist)
+            _, c_t, r_t, l1_t, f_t = _port_at(tm, tb, stage, tentry, jrec.evals[t], tpay, hoist, save_mid_freq)
             mine = {"contact set": c_t, "closest-point region": r_t, "L1 residual sign": l1_t,
                     "finger-prior sign": f_t}[first[0]]
             theirs = {"contact set": jrec.contacts, "closest-point region": jrec.regions,
@@ -395,7 +406,7 @@ def lockstep_stage(jm, tm, jentry, jb, tb, stage, check_unrecorded=False, hoist=
         faults=sum(s["verdict"].startswith("FAULT") for s in samples),
         rebuild_checks=rebuild_checks, samples=samples,
     )
-    return report, jout
+    return report, jout, tout
 
 
 def _print_stage(r):
@@ -421,18 +432,27 @@ def _print_stage(r):
               f"{s['snapshot_port']}")
 
 
+def lockstep_stages(jm, tm, entry, jb, tb, stages, hoist=True, save_mid_freq=10, port_entry=None):
+    """``stages`` in lockstep from ``entry`` (numpy), each from JAX's result
+    of the stage before -> the stages' reports. With ``port_entry`` the port
+    runs its own chain instead, from ``port_entry`` and then from its own
+    result of the stage before: both sides as their ``optimize_batch`` runs."""
+    reports = []
+    for stage in stages:
+        r, entry, tout = lockstep_stage(jm, tm, entry, jb, tb, stage, check_unrecorded=True, hoist=hoist,
+                                        save_mid_freq=save_mid_freq, port_entry=port_entry)
+        port_entry = None if port_entry is None else tout
+        _print_stage(r)
+        reports.append(r)
+    return reports
+
+
 def run_lockstep(batch, seed, hoist=True):
     """Every stage of ``opt_default`` in lockstep, each from JAX's result of
     the stage before -> the stages' reports."""
     jm, jp, jb = jax_inputs(batch, seed)
     tm, tb = synthetic_mano_model(device="cpu"), torch_batch(jb)
-    entry = jax.tree_util.tree_map(np.asarray, jp)
-    reports = []
-    for stage in JS.opt_default:
-        r, entry = lockstep_stage(jm, tm, entry, jb, tb, stage, check_unrecorded=True, hoist=hoist)
-        _print_stage(r)
-        reports.append(r)
-    return reports
+    return lockstep_stages(jm, tm, jax.tree_util.tree_map(np.asarray, jp), jb, tb, JS.opt_default, hoist)
 
 
 def test_losses_take_jax_derivatives_at_their_kinks():
@@ -483,7 +503,7 @@ def test_orient_stage_in_lockstep_with_jax():
     jm, jp, jb = jax_inputs(2, 0)
     tm, tb = synthetic_mano_model(device="cpu"), torch_batch(jb)
     stage = dataclasses.replace(JS.opt_default[1], epoch=20)
-    r, _ = lockstep_stage(jm, tm, jax.tree_util.tree_map(np.asarray, jp), jb, tb, stage, check_rebuilds=False)
+    r, _, _ = lockstep_stage(jm, tm, jax.tree_util.tree_map(np.asarray, jp), jb, tb, stage, check_rebuilds=False)
     assert r["steps"] == 21 and r["rebuilds"] == 2 and r["contacts_seen"] > 0
     assert r["samples_with_choice_differences"] == {k: 0 for k in KINDS}, r
     assert r["samples_over_tol_at_any_step"] == 0 and r["max_end_gap"] <= TOL, r
