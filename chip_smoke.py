@@ -296,23 +296,27 @@ def log(*args):
     print(*args, flush=True)
 
 
-def _kernel_modules():
-    from ihmr_tpu_torch.ops import bn_stats, exact_collision, nearest_centroid
-
-    return {"exact_collision": exact_collision, "nearest_centroid": nearest_centroid, "bn_stats": bn_stats}
+# the registry counter of each kernel's launches (ihmr_tpu_torch/profiling.py)
+LAUNCH_COUNTERS = {"exact_collision": "k1.launches", "nearest_centroid": "k2.launches", "bn_stats": "k3.launches"}
+_counts_at_zero = {}
 
 
 def zero_counts():
-    """Set every kernel's launch count to 0 (just before a path's run)."""
+    """Take every kernel's launch count as 0 from here (just before a path's run)."""
+    from ihmr_tpu_torch import profiling
+
     torch.cuda.synchronize()
-    for mod in _kernel_modules().values():
-        mod.reset_launch_count()
+    _counts_at_zero.clear()
+    _counts_at_zero.update(profiling.counters())
 
 
 def read_counts():
-    """Every kernel's launch count (just after a path's run)."""
+    """Every kernel's launches since ``zero_counts`` (just after a path's run)."""
+    from ihmr_tpu_torch import profiling
+
     torch.cuda.synchronize()
-    return {name: mod.launch_count for name, mod in _kernel_modules().items()}
+    now = profiling.counters()
+    return {name: now.get(c, 0) - _counts_at_zero.get(c, 0) for name, c in LAUNCH_COUNTERS.items()}
 
 
 def check_counts(path, counts, **expected):
@@ -345,7 +349,7 @@ def _compare_exact(q, tri, label, timed=False):
     N, V, _ = q.shape
     F = tri.shape[1]
     qp, tp, bounds = K.pad_inputs(q, tri)
-    K.reset_launch_count()
+    zero_counts()
     depth, dirs = K._launch_kernel(qp, tp, bounds, F)
     torch.cuda.synchronize()
     ref_depth, ref_dirs, evaluated = K.exact_penetration_depth_reference(qp, tp, bounds, F)
@@ -381,7 +385,7 @@ def _compare_exact(q, tri, label, timed=False):
         f"CUDA events around one wrapper call; plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
         f"{flops / 1e9:.3f} GFLOP evaluated of {N * V * F * FLOPS_PER_PAIR / 1e9:.3f} unpruned, "
         f"{nbytes / 1e6:.2f} MB), library call: none (no single PyTorch call computes this); "
-        f"{K.launch_count} kernel launches in this comparison"
+        f"{read_counts()['exact_collision']} kernel launches in this comparison"
     )
     return dict(max_abs_err=err, ms=ms, ms_with_host=host_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
@@ -395,7 +399,7 @@ def _compare_nearest(q, cent, label, timed=False):
     N, V, _ = q.shape
     F = cent.shape[1]
     qp, cp = NC.pad_inputs(q, cent)
-    NC.reset_launch_count()
+    zero_counts()
     idx = NC._launch_kernel(qp, cp, F)
     torch.cuda.synchronize()
     ref = NC.nearest_centroid_reference(qp, cp, F)
@@ -403,7 +407,7 @@ def _compare_nearest(q, cent, label, timed=False):
     equal = float((idx == ref).float().mean())
     err = float((idx - ref).abs().max())
     log(f"  [{label}] N={N} V={V} F={F}: equal indices {equal:.6f} (must be 1), max |index diff| {err:.0f}, "
-        f"{NC.launch_count} kernel launch in this comparison")
+        f"{read_counts()['nearest_centroid']} kernel launch in this comparison")
     if equal != 1.0:
         raise AssertionError(f"nearest_centroid kernel disagrees with its plain version ({label})")
     if not timed:
@@ -513,7 +517,7 @@ def _compare_bn(x, label):
     kernel a call; backward."""
     from ihmr_tpu_torch.ops import bn_stats as K3
 
-    K3.reset_launch_count()
+    zero_counts()
     s, s2 = K3._launch_kernel(x)
     torch.cuda.synchronize()
     again = []
@@ -543,7 +547,7 @@ def _compare_bn(x, label):
         f"{k_err[0]:.3e} of sum|x| (tol {BN_SUM_TOL}), sum-of-squares rel err {k_err[1]:.3e} (tol {BN_SQ_TOL}); "
         f"plain version vs float64: {p_err[0]:.3e}, {p_err[1]:.3e}; max |kernel - plain| {abs_err:.3e}; "
         f"same bits on a second launch: {same_bits}; backward rel err {gx_err:.3e}; "
-        f"{K3.launch_count} kernel launches in this comparison; device kernels in one call {per_call}"
+        f"{read_counts()['bn_stats']} kernel launches in this comparison; device kernels in one call {per_call}"
     )
     failed = [name for name, ok in (
         (f"sum err {k_err[0]:.3e} > {BN_SUM_TOL}", k_err[0] <= BN_SUM_TOL),
@@ -649,7 +653,6 @@ def phase_engines(dev):
     """The stage-hoisted engine against the full decode over 4 x 21 steps."""
     from ihmr_tpu_torch.data import make_opt_inputs
     from ihmr_tpu_torch.mano import synthetic_mano_model
-    from ihmr_tpu_torch.ops import exact_collision as K
     from ihmr_tpu_torch.refine import OptConfig, opt_default, optimize_batch, run_stage
     from ihmr_tpu_torch.refine.opt_engine import _make_stage_forward
 
@@ -660,12 +663,12 @@ def phase_engines(dev):
         params, batch = make_opt_inputs(mano, batch=B, seed=0)
         outs = {}
         for hoist, config in configs.items():
-            K.reset_launch_count()
+            zero_counts()
             outs[hoist], _ = optimize_batch(mano, params, batch, strategy, config)
-            torch.cuda.synchronize()
-            if K.launch_count != 1:
+            launches = read_counts()["exact_collision"]
+            if launches != 1:
                 raise AssertionError(f"optimize_batch (stage_hoist_decode={hoist}) launched exact_collision "
-                                     f"{K.launch_count} times, not once")
+                                     f"{launches} times, not once")
         gap = torch.stack([(outs[True][k] - outs[False][k]).abs().reshape(B, -1).max(1).values for k in params])
         gap = gap.max(0).values.cpu()
         over = [int(i) for i in torch.nonzero(gap > HOIST_TOL).flatten()]
@@ -958,12 +961,11 @@ def phase_small_mlp(dev):
 
 
 def phase_small_train(dev):
-    from ihmr_tpu_torch.ops import bn_stats as K3
     from ihmr_tpu_torch.pipeline import PARAMS_SHARE, SHORT_TRAIN_TOL, run_short_train, short_train_gaps
 
-    K3.reset_launch_count()
+    zero_counts()
     gpu = run_short_train(dev)
-    launches = K3.launch_count
+    launches = read_counts()["bn_stats"]
     gaps = short_train_gaps(gpu, run_short_train("cpu"))
     log(f"small training (ResNet-18 64x64, B=4, 2 steps), card vs CPU: bn_stats launches {launches} (expected 40); "
         + ", ".join(f"{k} gap {v:.3e} (tol {SHORT_TRAIN_TOL[k]})" for k, v in gaps.items())
@@ -1300,7 +1302,7 @@ os.makedirs(os.path.join(work, f"rank{rank}"), exist_ok=True)
 os.chdir(os.path.join(work, f"rank{rank}"))  # each rank writes its own evaluate_results/
 import torch
 from ihmr_tpu_torch import cli
-from ihmr_tpu_torch.ops import bn_stats, exact_collision, nearest_centroid
+from ihmr_tpu_torch import profiling
 from ihmr_tpu_torch.parallel import dist
 from ihmr_tpu_torch.train import loops
 
@@ -1317,8 +1319,8 @@ r, w = dist.initialize(f"127.0.0.1:{port}", num_processes=2, process_id=rank)
 t1 = time.perf_counter()
 merged = dist.gather_evaluators(out["evaluator"], os.path.join(work, "gather"), "test_baseline", r, w)
 report = dict(rank=r, world=w, indices=seen, seconds=seconds, gather_seconds=time.perf_counter() - t1,
-              launches=dict(exact_collision=exact_collision.launch_count, nearest_centroid=nearest_centroid.launch_count,
-                            bn_stats=bn_stats.launch_count))
+              launches={name: profiling.counters().get(c, 0) for name, c in
+                        dict(exact_collision="k1.launches", nearest_centroid="k2.launches", bn_stats="k3.launches").items()})
 if r == 0:
     report["merged"] = dict(n=len(merged.pred_results), unique=len({p["img_path_relative"] for p in merged.pred_results}),
                             metrics=dict(merged.metric_dict()))
@@ -1620,7 +1622,6 @@ def _k1_loop_checks(mano, params, batch, config, label):
     kernel's forward and its dir-based backward) against the same step with
     the plain version, on the same card and inputs."""
     from ihmr_tpu_torch import kernel_cases
-    from ihmr_tpu_torch.ops import exact_collision as K
     from ihmr_tpu_torch.refine import compute_losses, forward, opt_default
 
     fsub = config.loop_collision_face_subsample
@@ -1635,10 +1636,9 @@ def _k1_loop_checks(mano, params, batch, config, label):
         grads = torch.autograd.grad(aux["collision_loss"], list(leaves.values()), allow_unused=True)
         return {k: g for k, g in zip(leaves, grads) if g is not None}
 
-    K.reset_launch_count()
+    zero_counts()
     kernel = coll_grads()
-    torch.cuda.synchronize()
-    launches = K.launch_count
+    launches = read_counts()["exact_collision"]
     with _k1_plain_version():
         plain = coll_grads()
     scale = max(float(g.abs().max()) for g in plain.values())

@@ -17,6 +17,7 @@ from torch import nn
 
 from ihmr_tpu_torch.device import DeviceLike, resolve_device
 from ihmr_tpu_torch.models.resnet import get_backbone
+from ihmr_tpu_torch.profiling import span
 
 TOTAL_PARAMS_DIM = 122
 
@@ -52,11 +53,12 @@ class InterHandEncoder(nn.Module):
     def forward(self, images: torch.Tensor, mean_params: torch.Tensor, return_features: bool = False):
         """mean_params: (122,) or (B, 122), the start of the iterative regressor.
         With ``return_features`` also the 1024-d feature: (params, hand_type, feat)."""
-        feat = self.features(images)
-        pred = mean_params.expand(feat.shape[0], self.total_params_dim)
-        for _ in range(self.num_iterations):
-            pred = pred + self.regressor_ih(torch.cat([feat, pred], dim=-1))
-        hand_type = self.hand_classifier(feat)
+        with span("enc.forward"):
+            feat = self.features(images)
+            pred = mean_params.expand(feat.shape[0], self.total_params_dim)
+            for _ in range(self.num_iterations):
+                pred = pred + self.regressor_ih(torch.cat([feat, pred], dim=-1))
+            hand_type = self.hand_classifier(feat)
         if return_features:
             return pred, hand_type, feat
         return pred, hand_type

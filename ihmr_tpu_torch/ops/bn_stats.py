@@ -44,6 +44,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ihmr_tpu_torch import profiling
 from ihmr_tpu_torch.build import kernel_function
 
 THREADS = 256  # threads per block (csrc/bn_stats.cu kThreads)
@@ -53,17 +54,6 @@ SLOTS = SMS * BLOCKS_PER_SM  # one wave: no grid has more blocks
 SMALL_RUN_BYTES = 1024  # runs this short go by channel tiles
 LOADS = 8  # loads in flight a thread (csrc/bn_stats.cu kLoads): runs two rounds of LOADS // 2
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-# launches of the CUDA kernel (incremented only where the kernel is launched,
-# under the lock: the shard threads of parallel/mesh.py launch at once)
-launch_count = 0
-_count_lock = threading.Lock()
-
-
-def reset_launch_count() -> None:
-    global launch_count
-    launch_count = 0
-
 
 class LaunchPlan(NamedTuple):
     path: str  # "runs" (one channel an item) or "tiles" (ct channels over the whole batch an item)
@@ -174,7 +164,6 @@ def _launch_kernel(x: torch.Tensor, fn=None) -> Tuple[torch.Tensor, torch.Tensor
     kernel, its partials combined in the same launch. ``fn``: the C entry
     point of another build of the source (``compare_kernels``); default the
     package's."""
-    global launch_count
     if x.dtype not in _DTYPE_CODE:
         raise ValueError(f"bn_stats kernel takes fp32 or bf16, got {x.dtype}")
     if x.dim() < 2 or not x.is_contiguous() or x.numel() == 0:
@@ -197,8 +186,7 @@ def _launch_kernel(x: torch.Tensor, fn=None) -> Tuple[torch.Tensor, torch.Tensor
         )
     if err != 0:
         raise RuntimeError(f"bn_stats kernel launch failed: cudaError {err}")
-    with _count_lock:
-        launch_count += 1
+    profiling.count("k3.launches")  # where the kernel is launched, and only there
     return buf[:C], buf[C : 2 * C]
 
 

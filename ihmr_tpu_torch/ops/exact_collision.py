@@ -30,11 +30,11 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import Tuple
 
 import torch
 
+from ihmr_tpu_torch import profiling
 from ihmr_tpu_torch.build import kernel_function
 
 Q_TILE = 128  # queries padded to a multiple of this (the pruning group of a block)
@@ -42,17 +42,6 @@ T_TILE = 128  # triangles per tile
 TIE_REL = 1e-3  # relative d2 tolerance of the tie set
 _BIG = 1e30
 _EPS = 1e-12
-
-# launches of the CUDA kernel (incremented only where the kernel is launched,
-# under the lock: the shard threads of parallel/mesh.py launch at once)
-launch_count = 0
-_count_lock = threading.Lock()
-
-
-def reset_launch_count() -> None:
-    global launch_count
-    launch_count = 0
-
 
 def _round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
@@ -206,7 +195,6 @@ _FORWARD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 def _launch_kernel(q, tri, bounds, n_tri):
     """Launch csrc/exact_collision.cu on padded CUDA inputs."""
-    global launch_count
     N, Vp, _ = q.shape
     Fp = tri.shape[1]
     for x, shape in ((q, (N, Vp, 3)), (tri, (N, Fp, 9)), (bounds, (N, Fp // T_TILE, 4))):
@@ -229,8 +217,7 @@ def _launch_kernel(q, tri, bounds, n_tri):
         )
     if err != 0:
         raise RuntimeError(f"exact_collision kernel launch failed: cudaError {err}")
-    with _count_lock:
-        launch_count += 1
+    profiling.count("k1.launches")  # where the kernel is launched, and only there
     return depth, dirs
 
 

@@ -26,26 +26,15 @@ triangle instead.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
+from ihmr_tpu_torch import profiling
 from ihmr_tpu_torch.build import kernel_function
 
 Q_TILE = 128  # queries padded to a multiple of this
 T_TILE = 128  # centroids per tile
 _BIG = 1e30
-
-# launches of the CUDA kernel (incremented only where the kernel is launched,
-# under the lock: the shard threads of parallel/mesh.py launch at once)
-launch_count = 0
-_count_lock = threading.Lock()
-
-
-def reset_launch_count() -> None:
-    global launch_count
-    launch_count = 0
-
 
 def _round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
@@ -99,7 +88,6 @@ _FORWARD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 def _launch_kernel(q: torch.Tensor, cent: torch.Tensor, n_tri: int) -> torch.Tensor:
     """Launch csrc/nearest_centroid.cu on padded CUDA inputs -> (N, Vp) int32."""
-    global launch_count
     N, Vp, _ = q.shape
     Fp = cent.shape[1]
     for x, shape in ((q, (N, Vp, 3)), (cent, (N, Fp, 4))):
@@ -120,8 +108,7 @@ def _launch_kernel(q: torch.Tensor, cent: torch.Tensor, n_tri: int) -> torch.Ten
         err = fn(q.data_ptr(), cent.data_ptr(), index.data_ptr(), N, Vp, Fp, n_tri, stream)
     if err != 0:
         raise RuntimeError(f"nearest_centroid kernel launch failed: cudaError {err}")
-    with _count_lock:
-        launch_count += 1
+    profiling.count("k2.launches")  # where the kernel is launched, and only there
     return index
 
 

@@ -61,6 +61,7 @@ escalation of refine/escalation.py.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
@@ -92,6 +93,7 @@ from ihmr_tpu_torch.ops.collision import (
 )
 from ihmr_tpu_torch.ops.grid_sdf import pair_depths_grid, pair_grids
 from ihmr_tpu_torch.parallel.mesh import Replicated, Sharded, current_shard, replicate
+from ihmr_tpu_torch.profiling import count, span
 from ihmr_tpu_torch.refine.adam import SGD, Adam
 from ihmr_tpu_torch.refine.schedule import OPT_DEFAULT_LOSS_WEIGHTS, Stage
 
@@ -310,107 +312,114 @@ def compute_losses(
     ``outputs`` reuses a forward already computed for ``p``; ``fwd_fn``
     (params -> the same four outputs) replaces the full decode with a
     stage's hoisted forward (``_make_stage_forward``)."""
-    if outputs is None:
-        outputs = fwd_fn(p) if fwd_fn is not None else forward(model, p)
-    rv, lv, joints3d, joints2d = outputs
-    aux: Dict[str, torch.Tensor] = {}
+    with span("opt.losses"):
+        if outputs is None:
+            with span("opt.decode"):
+                outputs = fwd_fn(p) if fwd_fn is not None else forward(model, p)
+        rv, lv, joints3d, joints2d = outputs
+        aux: Dict[str, torch.Tensor] = {}
 
-    if not in_loop:
-        j2d_gt, _ = L.joints_2d_loss(batch.joints_2d[:, :, :2], joints2d, batch.joints_2d[:, :, 2:3])
-        aux["joints_2d_loss"] = j2d_gt
-        j3d_gt, _ = L.joints_3d_loss(batch.joints_3d[:, :, :3], joints3d, batch.joints_3d[:, :, 3:4])
-        aux["joints_3d_loss"] = j3d_gt * 1000.0
-        trans_gt = L.hand_trans_loss(batch.hand_trans[:, :, :3], p["trans"], batch.hand_trans[:, :, 3:4])
-        aux["hand_trans_loss"] = trans_gt * 10.0
+        if not in_loop:
+            j2d_gt, _ = L.joints_2d_loss(batch.joints_2d[:, :, :2], joints2d, batch.joints_2d[:, :, 2:3])
+            aux["joints_2d_loss"] = j2d_gt
+            j3d_gt, _ = L.joints_3d_loss(batch.joints_3d[:, :, :3], joints3d, batch.joints_3d[:, :, 3:4])
+            aux["joints_3d_loss"] = j3d_gt * 1000.0
+            trans_gt = L.hand_trans_loss(batch.hand_trans[:, :, :3], p["trans"], batch.hand_trans[:, :, 3:4])
+            aux["hand_trans_loss"] = trans_gt * 10.0
 
-    j2d_p, j2d_p_batch = L.joints_2d_loss(
-        batch.init_joints_2d[:, :, :2], joints2d, batch.init_joints_2d[:, :, 2:3]
-    )
-    aux["joints_2d_loss_p_batch"] = j2d_p_batch * weights["joints_2d_loss"]
-    total = j2d_p * weights["joints_2d_loss"]
-
-    j3d_p, j3d_p_batch = L.joints_3d_loss(
-        batch.init_joints_3d[:, :, :3], joints3d, batch.init_joints_3d[:, :, 3:4]
-    )
-    aux["joints_3d_loss_p_batch"] = j3d_p_batch * weights["joints_3d_loss"]
-    total = total + j3d_p * weights["joints_3d_loss"]
-
-    trans_p = L.hand_trans_loss(
-        batch.init_hand_trans_j[:, :, :3], p["trans"], batch.init_hand_trans_j[:, :, 3:4]
-    )
-    total = total + trans_p * weights["trans_loss_weight"]
-
-    w_coll = weights["collision_loss_weight"]
-    if in_loop and config.loop_collision_fast:
-        backend, num_candidates = ("2level" if config.loop_collision_cluster > 0 else "xla"), 1
-    else:
-        backend, num_candidates = config.collision_backend, config.num_candidates
-        if backend == "fast":  # single-candidate whatever num_candidates says, as in JAX
-            num_candidates = 1
-        if not in_loop and backend == "grid":
-            # the grid is an in-loop mechanism; the final metric is exact
-            backend, num_candidates = "auto", 8
-    sub = config.loop_collision_subsample if in_loop else 1
-    fsub = config.loop_collision_face_subsample if in_loop else 1
-    # the frozen-payload and parity paths ARE the flat nearest-face selection:
-    # never taken with the 2-level hierarchy
-    fast_in_loop = in_loop and config.loop_collision_fast and config.loop_collision_cluster == 0
-    margin = config.loop_collision_margin
-    if in_loop and skip_zero_collision and float(w_coll) == 0.0:
-        # a weight of 0: no gradient and no filter pressure, so skip the work
-        B, V = rv.shape[0], rv.shape[1]
-        coll = rv.new_zeros(())
-        coll_batch = rv.new_zeros((B,))
-        coll_origin = rv.new_zeros((B, 2 * V))
-    elif in_loop and coll_grid is not None:
-        q_r, q_l = _query_subsets(rv, lv, sub, coll_parity)
-        depths = pair_depths_grid(q_r, q_l, coll_grid)
-        coll, coll_batch, coll_origin = depths_to_loss(depths, rv, lv, batch.hand_type_array, config.robustifier)
-    elif fast_in_loop and coll_tris is not None:
-        tri_r, tri_l, frozen_scale = coll_tris
-        q_r, q_l = _query_subsets(rv, lv, sub, coll_parity)
-        depths = pair_depths_at_tris(q_r, q_l, tri_r, tri_l, margin=margin)
-        coll, coll_batch, coll_origin = depths_to_loss(
-            depths, rv, lv, batch.hand_type_array, config.robustifier, scale=frozen_scale
+        j2d_p, j2d_p_batch = L.joints_2d_loss(
+            batch.init_joints_2d[:, :, :2], joints2d, batch.init_joints_2d[:, :, 2:3]
         )
-    elif fast_in_loop and (coll_idx is not None or coll_parity is not None):
-        # a frozen selection at the current positions, or a fresh one on the
-        # parity's queries
-        q_r, q_l = _query_subsets(rv, lv, sub, coll_parity)
-        faces_r, faces_l = _strided_faces(model, fsub)
-        idx = coll_idx if coll_idx is not None else pair_indices(q_r, q_l, rv, lv, faces_r, faces_l)
-        depths = pair_depths_at(q_r, q_l, rv, lv, faces_r, faces_l, *idx, margin=margin)
-        coll, coll_batch, coll_origin = depths_to_loss(depths, rv, lv, batch.hand_type_array, config.robustifier)
-    else:
-        coll, coll_batch, coll_origin = collision_loss(
-            rv,
-            lv,
-            *_strided_faces(model, fsub),
-            batch.hand_type_array,
-            robustifier=config.robustifier,
-            num_candidates=num_candidates,
-            backend=backend,
-            cluster_group=config.loop_collision_cluster,
-            query_subsample=sub,
-            margin=margin if in_loop else 0.0,
-            parity_filter=(not in_loop) and config.exact_parity_filter,
+        aux["joints_2d_loss_p_batch"] = j2d_p_batch * weights["joints_2d_loss"]
+        total = j2d_p * weights["joints_2d_loss"]
+
+        j3d_p, j3d_p_batch = L.joints_3d_loss(
+            batch.init_joints_3d[:, :, :3], joints3d, batch.init_joints_3d[:, :, 3:4]
         )
-    if sub > 1:  # keep the loss magnitude comparable to full sampling
-        coll = coll * sub
-        coll_batch = coll_batch * sub
-    aux["collision_loss"] = coll * w_coll
-    aux["collision_loss_batch"] = coll_batch
-    aux["collision_loss_origin_scale"] = coll_origin
-    total = total + coll * w_coll
+        aux["joints_3d_loss_p_batch"] = j3d_p_batch * weights["joints_3d_loss"]
+        total = total + j3d_p * weights["joints_3d_loss"]
 
-    shape_reg, _ = L.shape_reg_loss(torch.cat([p["right_shape"], p["left_shape"]], dim=1))
-    total = total + shape_reg * weights["shape_reg_loss_weight"]
-    aux["shape_reg_loss"] = shape_reg * weights["shape_reg_loss_weight"]
+        trans_p = L.hand_trans_loss(
+            batch.init_hand_trans_j[:, :, :3], p["trans"], batch.init_hand_trans_j[:, :, 3:4]
+        )
+        total = total + trans_p * weights["trans_loss_weight"]
 
-    finger_reg, _ = L.finger_reg_loss(joints3d)
-    total = total + finger_reg * weights["finger_reg_loss_weight"]
-    aux["finger_reg_loss"] = finger_reg * weights["finger_reg_loss_weight"]
-    return total, aux
+        w_coll = weights["collision_loss_weight"]
+        if in_loop and config.loop_collision_fast:
+            backend, num_candidates = ("2level" if config.loop_collision_cluster > 0 else "xla"), 1
+        else:
+            backend, num_candidates = config.collision_backend, config.num_candidates
+            if backend == "fast":  # single-candidate whatever num_candidates says, as in JAX
+                num_candidates = 1
+            if not in_loop and backend == "grid":
+                # the grid is an in-loop mechanism; the final metric is exact
+                backend, num_candidates = "auto", 8
+        sub = config.loop_collision_subsample if in_loop else 1
+        fsub = config.loop_collision_face_subsample if in_loop else 1
+        # the frozen-payload and parity paths ARE the flat nearest-face selection:
+        # never taken with the 2-level hierarchy
+        fast_in_loop = in_loop and config.loop_collision_fast and config.loop_collision_cluster == 0
+        margin = config.loop_collision_margin
+        with span("opt.collision"):
+            if in_loop and skip_zero_collision and float(w_coll) == 0.0:
+                # a weight of 0: no gradient and no filter pressure, so skip the work
+                B, V = rv.shape[0], rv.shape[1]
+                coll = rv.new_zeros(())
+                coll_batch = rv.new_zeros((B,))
+                coll_origin = rv.new_zeros((B, 2 * V))
+            elif in_loop and coll_grid is not None:
+                q_r, q_l = _query_subsets(rv, lv, sub, coll_parity)
+                depths = pair_depths_grid(q_r, q_l, coll_grid)
+                coll, coll_batch, coll_origin = depths_to_loss(
+                    depths, rv, lv, batch.hand_type_array, config.robustifier
+                )
+            elif fast_in_loop and coll_tris is not None:
+                tri_r, tri_l, frozen_scale = coll_tris
+                q_r, q_l = _query_subsets(rv, lv, sub, coll_parity)
+                depths = pair_depths_at_tris(q_r, q_l, tri_r, tri_l, margin=margin)
+                coll, coll_batch, coll_origin = depths_to_loss(
+                    depths, rv, lv, batch.hand_type_array, config.robustifier, scale=frozen_scale
+                )
+            elif fast_in_loop and (coll_idx is not None or coll_parity is not None):
+                # a frozen selection at the current positions, or a fresh one on the
+                # parity's queries
+                q_r, q_l = _query_subsets(rv, lv, sub, coll_parity)
+                faces_r, faces_l = _strided_faces(model, fsub)
+                idx = coll_idx if coll_idx is not None else pair_indices(q_r, q_l, rv, lv, faces_r, faces_l)
+                depths = pair_depths_at(q_r, q_l, rv, lv, faces_r, faces_l, *idx, margin=margin)
+                coll, coll_batch, coll_origin = depths_to_loss(
+                    depths, rv, lv, batch.hand_type_array, config.robustifier
+                )
+            else:
+                coll, coll_batch, coll_origin = collision_loss(
+                    rv,
+                    lv,
+                    *_strided_faces(model, fsub),
+                    batch.hand_type_array,
+                    robustifier=config.robustifier,
+                    num_candidates=num_candidates,
+                    backend=backend,
+                    cluster_group=config.loop_collision_cluster,
+                    query_subsample=sub,
+                    margin=margin if in_loop else 0.0,
+                    parity_filter=(not in_loop) and config.exact_parity_filter,
+                )
+        if sub > 1:  # keep the loss magnitude comparable to full sampling
+            coll = coll * sub
+            coll_batch = coll_batch * sub
+        aux["collision_loss"] = coll * w_coll
+        aux["collision_loss_batch"] = coll_batch
+        aux["collision_loss_origin_scale"] = coll_origin
+        total = total + coll * w_coll
+
+        shape_reg, _ = L.shape_reg_loss(torch.cat([p["right_shape"], p["left_shape"]], dim=1))
+        total = total + shape_reg * weights["shape_reg_loss_weight"]
+        aux["shape_reg_loss"] = shape_reg * weights["shape_reg_loss_weight"]
+
+        finger_reg, _ = L.finger_reg_loss(joints3d)
+        total = total + finger_reg * weights["finger_reg_loss_weight"]
+        aux["finger_reg_loss"] = finger_reg * weights["finger_reg_loss_weight"]
+        return total, aux
 
 
 _FILTER_KEYS = {
@@ -596,29 +605,36 @@ def run_stage(
             model, {**frozen, **leaves}, batch, w, config, in_loop=True, fwd_fn=fwd_fn,
             coll_parity=parity, skip_zero_collision=skip_zero_collision, **payload,
         )
-        grads = torch.autograd.grad(_global_mean(total), list(leaves.values()))
+        with span("opt.backward"):
+            grads = torch.autograd.grad(_global_mean(total), list(leaves.values()))
         return {k: a.detach() for k, a in aux.items()}, dict(zip(leaves, grads))
 
     def update(grads):
         nonlocal subset
-        subset = opt.step(subset, grads, stage.lr)
+        with span("opt.adam"):
+            subset = opt.step(subset, grads, stage.lr)
 
     def run_block(j0, length, payload_set):
         nonlocal best, best_select, bars
-        aux, grads = grads_at(payload_set, j0)
-        with torch.no_grad():
-            cur = torch.stack([aux[_FILTER_KEYS[n]] for n in filter_names], dim=0)  # (NF, B)
-            cur_select = aux[select_key]
-            if j0 == 0:  # first snapshot: set the bars, take the params unconditionally
-                bars = cur * (1.0 + bars_pct[:, None])
-                improve = torch.ones((B,), dtype=torch.bool, device=device)
-            else:
-                improve = (cur <= bars).all(dim=0) & (cur_select < best_select)
-            best_select = torch.where(improve, cur_select, best_select)
-            best = {k: torch.where(improve[:, None], subset[k], best[k]) for k in subset}
-        update(grads)
+        with span("opt.step"):
+            count("opt.steps")
+            aux, grads = grads_at(payload_set, j0)
+            count("opt.snapshots")
+            with span("opt.snapshot"), torch.no_grad():
+                cur = torch.stack([aux[_FILTER_KEYS[n]] for n in filter_names], dim=0)  # (NF, B)
+                cur_select = aux[select_key]
+                if j0 == 0:  # first snapshot: set the bars, take the params unconditionally
+                    bars = cur * (1.0 + bars_pct[:, None])
+                    improve = torch.ones((B,), dtype=torch.bool, device=device)
+                else:
+                    improve = (cur <= bars).all(dim=0) & (cur_select < best_select)
+                best_select = torch.where(improve, cur_select, best_select)
+                best = {k: torch.where(improve[:, None], subset[k], best[k]) for k in subset}
+            update(grads)
         for j in range(j0 + 1, j0 + length):  # lean steps: gradient + update only
-            update(grads_at(payload_set, j)[1])
+            with span("opt.step"):
+                count("opt.steps")
+                update(grads_at(payload_set, j)[1])
 
     freq = config.save_mid_freq
     nblocks, tail = divmod(steps, freq)
@@ -627,7 +643,9 @@ def run_stage(
     def payload_now():
         if not blocked:
             return None
-        return _lazy_coll_payload(model, {**frozen, **subset}, config, parities, payload_mode, fwd_fn)
+        count("opt.payloads")
+        with span("opt.payload"):
+            return _lazy_coll_payload(model, {**frozen, **subset}, config, parities, payload_mode, fwd_fn)
 
     # superblocks of kre snapshot blocks share one payload rebuild
     nsb, rem = divmod(nblocks, kre)
@@ -676,24 +694,36 @@ def run_stage_program(
     def grads_at():
         leaves = {k: x.requires_grad_(True) for k, x in subset.items()}
         total, aux = compute_losses(model, {**frozen, **leaves}, batch, w, config, in_loop=True)
-        grads = torch.autograd.grad(_global_mean(total), list(leaves.values()))
+        with span("opt.backward"):
+            grads = torch.autograd.grad(_global_mean(total), list(leaves.values()))
         return {k: a.detach() for k, a in aux.items()}, dict(zip(leaves, grads))
 
-    aux, grads = grads_at()
-    bars = torch.stack([aux[_FILTER_KEYS[n]] for n in filter_names], dim=0) * (1.0 + bars_pct[:, None])
-    best_select = aux[select_key]
-    best = {k: x.detach() for k, x in subset.items()}
-    subset = opt.step(subset, grads, stage.lr)
-    for j in range(1, stage.epoch + 1):
+    def update(grads):
+        with span("opt.adam"):
+            return opt.step(subset, grads, stage.lr)
+
+    with span("opt.step"):
+        count("opt.steps")
         aux, grads = grads_at()
-        if j % config.save_mid_freq == 0:
-            with torch.no_grad():
-                cur = torch.stack([aux[_FILTER_KEYS[n]] for n in filter_names], dim=0)
-                cur_select = aux[select_key]
-                improve = (cur <= bars).all(dim=0) & (cur_select < best_select)
-                best_select = torch.where(improve, cur_select, best_select)
-                best = {k: torch.where(improve[:, None], subset[k], best[k]) for k in subset}
-        subset = opt.step(subset, grads, stage.lr)
+        count("opt.snapshots")
+        with span("opt.snapshot"):
+            bars = torch.stack([aux[_FILTER_KEYS[n]] for n in filter_names], dim=0) * (1.0 + bars_pct[:, None])
+            best_select = aux[select_key]
+            best = {k: x.detach() for k, x in subset.items()}
+        subset = update(grads)
+    for j in range(1, stage.epoch + 1):
+        with span("opt.step"):
+            count("opt.steps")
+            aux, grads = grads_at()
+            if j % config.save_mid_freq == 0:
+                count("opt.snapshots")
+                with span("opt.snapshot"), torch.no_grad():
+                    cur = torch.stack([aux[_FILTER_KEYS[n]] for n in filter_names], dim=0)
+                    cur_select = aux[select_key]
+                    improve = (cur <= bars).all(dim=0) & (cur_select < best_select)
+                    best_select = torch.where(improve, cur_select, best_select)
+                    best = {k: torch.where(improve[:, None], subset[k], best[k]) for k in subset}
+            subset = update(grads)
     return {**frozen, **{k: x.detach() for k, x in best.items()}}
 
 
@@ -733,6 +763,11 @@ def optimize_batch(
     their shards, the batch scalars (``total_loss``, ``joints_2d_loss``,
     ``joints_3d_loss``, ``hand_trans_loss``) the global batch means in
     every shard."""
+    with span("opt.batch"):
+        return _optimize_batch(model, params_init, batch, strategy, config)
+
+
+def _optimize_batch(model, params_init, batch, strategy, config):
     if isinstance(params_init, Sharded):
         return _optimize_sharded(model, params_init, batch, strategy, config)
     if config.collision_backend == "2level" and config.loop_collision_cluster < 1:
@@ -743,18 +778,19 @@ def optimize_batch(
         return optimize_batch_escalated(model, params_init, batch, strategy, config)
     params = {k: x.detach() for k, x in params_init.items()}
     if config.stage_hoist_decode:
-        for stage in strategy:
-            params = run_stage(model, params, batch, stage, config)
+        run = run_stage
     elif _strategy_is_fusable(strategy) and config.optimizer == "adam":
         all_coll_zero = all(float(s.weights["collision_loss_weight"]) == 0.0 for s in strategy)
-        for stage in strategy:
-            params = run_stage(model, params, batch, stage, config, skip_zero_collision=all_coll_zero)
+        run = functools.partial(run_stage, skip_zero_collision=all_coll_zero)
     else:
-        for stage in strategy:
-            params = run_stage_program(model, params, batch, stage, config)
+        run = run_stage_program
+    for i, stage in enumerate(strategy):
+        with span("opt.stage", stage=i, groups=stage.update_params):
+            params = run(model, params, batch, stage, config)
 
-    with torch.no_grad():
-        outputs = forward(model, params)
+    with span("opt.final"), torch.no_grad():
+        with span("opt.decode"):
+            outputs = forward(model, params)
         total, aux = compute_losses(
             model, params, batch, dict(OPT_DEFAULT_LOSS_WEIGHTS), config, outputs=outputs
         )

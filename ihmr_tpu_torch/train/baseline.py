@@ -45,6 +45,7 @@ from ihmr_tpu_torch.mano.model import ManoModel
 from ihmr_tpu_torch.models.encoder import InterHandEncoder
 from ihmr_tpu_torch.ops.collision import collision_loss
 from ihmr_tpu_torch.parallel.mesh import Replicated, Sharded, current_shard, replicate
+from ihmr_tpu_torch.profiling import count, span
 from ihmr_tpu_torch.refine.adam import Adam
 
 
@@ -144,73 +145,75 @@ def forward_and_loss(
     else:
         pred_params, pred_hand_type, img_feat = encoder(batch.img, mean_params, return_features=True)
 
-    hp = HandParams.from_flat(pred_params)
-    pred_rv, pred_lv, pred_j3 = two_hand_decode(mano_right, mano_left, hp.pose_params, hp.shape_params, hp.trans)
-    pred_j2 = orthographic_project(pred_j3, hp.cam)
-    gt_rv, gt_lv, _ = two_hand_decode(
-        mano_right, mano_left, batch.gt_pose_params, batch.gt_shape_params, batch.hand_trans[:, 0, :3]
-    )
-
-    m: Dict[str, torch.Tensor] = {}
-    m["hand_type_loss"] = L.hand_type_loss(batch.hand_type_array, pred_hand_type, batch.hand_type_valid)
-    total = m["hand_type_loss"]
-    j2d, _ = L.joints_2d_loss(batch.joints_2d[:, :, :2], pred_j2, batch.joints_2d[:, :, 2:3])
-    m["joints_2d_loss"] = j2d * config.joints_2d_loss_weight
-    total = total + m["joints_2d_loss"]
-    j3d, _ = L.joints_3d_loss(batch.joints_3d[:, :, :3], pred_j3, batch.joints_3d[:, :, 3:4])
-    m["joints_3d_loss"] = j3d * config.joints_3d_loss_weight
-    total = total + m["joints_3d_loss"]
-    w = batch.mano_params_weight
-    pose_r = L.mano_pose_loss(batch.gt_pose_params[:, :48], hp.pose_params[:, :48], w[:, 0:1], config.use_hand_rotation)
-    pose_l = L.mano_pose_loss(batch.gt_pose_params[:, 48:], hp.pose_params[:, 48:], w[:, 1:2], config.use_hand_rotation)
-    m["mano_pose_loss"] = (pose_r + pose_l) * config.pose_param_weight
-    total = total + m["mano_pose_loss"]
-    shape_r = L.mano_shape_loss(batch.gt_shape_params[:, :10], hp.shape_params[:, :10], w[:, 0:1])
-    shape_l = L.mano_shape_loss(batch.gt_shape_params[:, 10:], hp.shape_params[:, 10:], w[:, 1:2])
-    m["mano_shape_loss"] = (shape_r + shape_l) * config.shape_param_weight
-    total = total + m["mano_shape_loss"]
-    trans = L.hand_trans_loss(batch.hand_trans[:, :, :3], hp.trans, batch.hand_trans[:, :, 3:4])
-    m["hand_trans_loss"] = trans * config.trans_loss_weight
-    total = total + m["hand_trans_loss"]
-    reg, _ = L.shape_reg_loss(hp.shape_params)
-    m["shape_reg_loss"] = reg * config.shape_reg_loss_weight
-    total = total + m["shape_reg_loss"]
-
-    coll_origin = None
-    if config.use_collision_loss or not train:
-        coll, _, coll_origin = collision_loss(
-            pred_rv, pred_lv, mano_right.faces, mano_left.faces, batch.hand_type_array,
-            robustifier=config.sdf_robustifier if train else None,
-            num_candidates=config.num_candidates,
-            # the metric applies the ray-parity filter; the training gradient
-            # keeps the reference's local-sign profile
-            parity_filter=not train,
+    with span("train.losses"):
+        hp = HandParams.from_flat(pred_params)
+        pred_rv, pred_lv, pred_j3 = two_hand_decode(mano_right, mano_left, hp.pose_params, hp.shape_params, hp.trans)
+        pred_j2 = orthographic_project(pred_j3, hp.cam)
+        gt_rv, gt_lv, _ = two_hand_decode(
+            mano_right, mano_left, batch.gt_pose_params, batch.gt_shape_params, batch.hand_trans[:, 0, :3]
         )
-        m["collision_loss"] = coll * config.collision_loss_weight
-        if config.use_collision_loss:
-            total = total + m["collision_loss"]
-    else:
-        m["collision_loss"] = torch.zeros((), device=total.device)
 
-    m["total_loss"] = total
-    outputs = {
-        "pred_params": pred_params,
-        "pred_hand_type": pred_hand_type,
-        "pred_cam_params": hp.cam,
-        "pred_pose_params": hp.pose_params,
-        "pred_shape_params": hp.shape_params,
-        "pred_hand_trans": hp.trans,
-        "pred_right_hand_verts": pred_rv,
-        "pred_left_hand_verts": pred_lv,
-        "gt_right_hand_verts": gt_rv,
-        "gt_left_hand_verts": gt_lv,
-        "pred_joints_3d": pred_j3,
-        "pred_joints_2d": pred_j2,
-        "gt_joints_3d": batch.joints_3d,
-        "collision_loss_origin_scale": coll_origin,
-        "img_feat": img_feat,
-    }
-    return total, m, outputs
+        m: Dict[str, torch.Tensor] = {}
+        m["hand_type_loss"] = L.hand_type_loss(batch.hand_type_array, pred_hand_type, batch.hand_type_valid)
+        total = m["hand_type_loss"]
+        j2d, _ = L.joints_2d_loss(batch.joints_2d[:, :, :2], pred_j2, batch.joints_2d[:, :, 2:3])
+        m["joints_2d_loss"] = j2d * config.joints_2d_loss_weight
+        total = total + m["joints_2d_loss"]
+        j3d, _ = L.joints_3d_loss(batch.joints_3d[:, :, :3], pred_j3, batch.joints_3d[:, :, 3:4])
+        m["joints_3d_loss"] = j3d * config.joints_3d_loss_weight
+        total = total + m["joints_3d_loss"]
+        w = batch.mano_params_weight
+        rot = config.use_hand_rotation
+        pose_r = L.mano_pose_loss(batch.gt_pose_params[:, :48], hp.pose_params[:, :48], w[:, 0:1], rot)
+        pose_l = L.mano_pose_loss(batch.gt_pose_params[:, 48:], hp.pose_params[:, 48:], w[:, 1:2], rot)
+        m["mano_pose_loss"] = (pose_r + pose_l) * config.pose_param_weight
+        total = total + m["mano_pose_loss"]
+        shape_r = L.mano_shape_loss(batch.gt_shape_params[:, :10], hp.shape_params[:, :10], w[:, 0:1])
+        shape_l = L.mano_shape_loss(batch.gt_shape_params[:, 10:], hp.shape_params[:, 10:], w[:, 1:2])
+        m["mano_shape_loss"] = (shape_r + shape_l) * config.shape_param_weight
+        total = total + m["mano_shape_loss"]
+        trans = L.hand_trans_loss(batch.hand_trans[:, :, :3], hp.trans, batch.hand_trans[:, :, 3:4])
+        m["hand_trans_loss"] = trans * config.trans_loss_weight
+        total = total + m["hand_trans_loss"]
+        reg, _ = L.shape_reg_loss(hp.shape_params)
+        m["shape_reg_loss"] = reg * config.shape_reg_loss_weight
+        total = total + m["shape_reg_loss"]
+
+        coll_origin = None
+        if config.use_collision_loss or not train:
+            coll, _, coll_origin = collision_loss(
+                pred_rv, pred_lv, mano_right.faces, mano_left.faces, batch.hand_type_array,
+                robustifier=config.sdf_robustifier if train else None,
+                num_candidates=config.num_candidates,
+                # the metric applies the ray-parity filter; the training gradient
+                # keeps the reference's local-sign profile
+                parity_filter=not train,
+            )
+            m["collision_loss"] = coll * config.collision_loss_weight
+            if config.use_collision_loss:
+                total = total + m["collision_loss"]
+        else:
+            m["collision_loss"] = torch.zeros((), device=total.device)
+
+        m["total_loss"] = total
+        outputs = {
+            "pred_params": pred_params,
+            "pred_hand_type": pred_hand_type,
+            "pred_cam_params": hp.cam,
+            "pred_pose_params": hp.pose_params,
+            "pred_shape_params": hp.shape_params,
+            "pred_hand_trans": hp.trans,
+            "pred_right_hand_verts": pred_rv,
+            "pred_left_hand_verts": pred_lv,
+            "gt_right_hand_verts": gt_rv,
+            "gt_left_hand_verts": gt_lv,
+            "pred_joints_3d": pred_j3,
+            "pred_joints_2d": pred_j2,
+            "gt_joints_3d": batch.joints_3d,
+            "collision_loss_origin_scale": coll_origin,
+            "img_feat": img_feat,
+        }
+        return total, m, outputs
 
 
 def train_step(
@@ -223,19 +226,24 @@ def train_step(
     """One Adam step at ``state.lr`` on the total loss, with train-mode
     BatchNorm (batch statistics; running statistics updated in place).
     Returns (state, metrics); the metrics are detached device tensors."""
-    encoder = state.encoder.train()
-    total, metrics, _ = forward_and_loss(encoder, state.mean_params, batch, mano_right, mano_left, config, train=True)
-    params = dict(encoder.named_parameters())
-    grads = torch.autograd.grad(total, list(params.values()))
-    _adam_update(state, dict(zip(params, grads)))
-    return state, {k: v.detach() for k, v in metrics.items()}
+    with span("train.step"):
+        count("train.steps")
+        encoder = state.encoder.train()
+        total, metrics, _ = forward_and_loss(
+            encoder, state.mean_params, batch, mano_right, mano_left, config, train=True
+        )
+        params = dict(encoder.named_parameters())
+        with span("train.backward"):
+            grads = torch.autograd.grad(total, list(params.values()))
+        _adam_update(state, dict(zip(params, grads)))
+        return state, {k: v.detach() for k, v in metrics.items()}
 
 
 def _adam_update(state: BaselineState, grads: Dict[str, torch.Tensor]) -> None:
     """One Adam step at ``state.lr`` on the encoder's parameters, in place."""
-    params = dict(state.encoder.named_parameters())
-    new = state.adam.step({k: v.detach() for k, v in params.items()}, grads, state.lr)
-    with torch.no_grad():
+    with span("train.adam"), torch.no_grad():
+        params = dict(state.encoder.named_parameters())
+        new = state.adam.step({k: v.detach() for k, v in params.items()}, grads, state.lr)
         for k, v in params.items():
             v.copy_(new[k])
 

@@ -59,7 +59,7 @@ import numpy as np
 import pytest
 import torch
 
-from ihmr_tpu_torch import kernel_cases, resolve_device
+from ihmr_tpu_torch import kernel_cases, profiling, resolve_device
 from ihmr_tpu_torch.data import make_mlp_inputs, make_opt_inputs
 from ihmr_tpu_torch.device import set_fp32_matmul_precision
 from ihmr_tpu_torch.mano import synthetic_mano_model
@@ -114,6 +114,21 @@ def _hand_pairs(device, batch=4):
     return q, tri
 
 
+_counts_at_zero = {}
+
+
+def _zero_counts():
+    """Take every kernel's launches as 0 from here."""
+    _counts_at_zero.clear()
+    _counts_at_zero.update(profiling.counters())
+
+
+def launches(kernel: str) -> int:
+    """The launches of ``kernel`` ("k1", "k2" or "k3") since ``_zero_counts()``."""
+    name = kernel + ".launches"
+    return profiling.counters().get(name, 0) - _counts_at_zero.get(name, 0)
+
+
 def test_default_device_is_cuda(cuda):
     assert resolve_device().type == "cuda"
     assert synthetic_mano_model().device.type == "cuda"
@@ -122,10 +137,10 @@ def test_default_device_is_cuda(cuda):
 def test_kernel_matches_plain_version(cuda):
     q, tri = _hand_pairs(cuda)
     qp, tp, bounds = K.pad_inputs(q, tri)
-    K.reset_launch_count()
+    _zero_counts()
     depth, dirs = K._launch_kernel(qp, tp, bounds, tri.shape[1])
     torch.cuda.synchronize()
-    assert K.launch_count == 1
+    assert launches("k1") == 1
     ref, ref_dirs, _ = K.exact_penetration_depth_reference(qp, tp, bounds, tri.shape[1])
     assert float((depth - ref).abs().max()) <= 1e-5
     assert float(((depth > 0) == (ref > 0)).float().mean()) >= 0.999
@@ -142,10 +157,10 @@ NEAREST_CASES = [case[0] for case in kernel_cases.nearest_cases("cpu")]
 def test_kernel_matches_plain_version_on_adversarial_cases(cuda, label):
     q, tri = next(case[1:] for case in kernel_cases.exact_cases(cuda) if case[0] == label)
     qp, tp, bounds = K.pad_inputs(q, tri)
-    K.reset_launch_count()
+    _zero_counts()
     depth, dirs = K._launch_kernel(qp, tp, bounds, tri.shape[1])
     torch.cuda.synchronize()
-    assert K.launch_count == 1
+    assert launches("k1") == 1
     ref, ref_dirs, evaluated = K.exact_penetration_depth_reference(qp, tp, bounds, tri.shape[1])
     assert torch.equal(depth, ref)  # the same best d2, so the same depths and inside signs
     gap = (dirs - ref_dirs)[(depth > 0) & (ref > 0)].abs()
@@ -164,10 +179,10 @@ def test_kernel_division_rounds_as_ieee(cuda):
 def test_nearest_kernel_matches_plain_version_on_adversarial_cases(cuda, label):
     q, cent, picks = next(case[1:] for case in kernel_cases.nearest_cases(cuda) if case[0] == label)
     qp, cp = NC.pad_inputs(q, cent)
-    NC.reset_launch_count()
+    _zero_counts()
     idx = NC._launch_kernel(qp, cp, cent.shape[1])
     torch.cuda.synchronize()
-    assert NC.launch_count == 1
+    assert launches("k2") == 1
     assert torch.equal(idx, NC.nearest_centroid_reference(qp, cp, cent.shape[1]))
     for n, pick in enumerate(picks or ()):
         assert bool((idx[n, : q.shape[1]] == pick).all()), (n, idx[n, : q.shape[1]].tolist())
@@ -189,9 +204,9 @@ def test_short_refinement_matches_cpu(cuda):
     for dev in (cuda, torch.device("cpu")):
         mano = synthetic_mano_model(device=dev)
         params, batch = make_opt_inputs(mano, batch=2, seed=0)
-        K.reset_launch_count()
+        _zero_counts()
         out, res = optimize_batch(mano, params, batch, strategy, OptConfig(save_mid_freq=10))
-        assert K.launch_count == (1 if dev.type == "cuda" else 0)
+        assert launches("k1") == (1 if dev.type == "cuda" else 0)
         outs.append(({k: v.cpu() for k, v in out.items()}, res["collision_loss"].cpu()))
     (p_gpu, c_gpu), (p_cpu, c_cpu) = outs
     for k in p_cpu:
@@ -207,18 +222,18 @@ def test_nearest_kernel_matches_plain_version(cuda):
     q = torch.cat([rv, lv])
     cent = _centroids(torch.cat([lv[:, mano.faces.flip(-1)], rv[:, mano.faces]]))
     qp, cp = NC.pad_inputs(q, cent)
-    NC.reset_launch_count()
+    _zero_counts()
     idx = NC._launch_kernel(qp, cp, cent.shape[1])
     torch.cuda.synchronize()
-    assert NC.launch_count == 1
+    assert launches("k2") == 1
     ref = NC.nearest_centroid_reference(qp, cp, cent.shape[1])
     assert torch.equal(idx, ref)
 
 
 def test_short_mlp_training_matches_cpu(cuda):
-    NC.reset_launch_count()
+    _zero_counts()
     gpu = run_short_mlp(cuda)
-    assert NC.launch_count == 6  # one per train step
+    assert launches("k2") == 6  # one per train step
     gaps, masks_equal = short_mlp_gaps(gpu, run_short_mlp("cpu"))
     assert masks_equal
     for k, gap in gaps.items():
@@ -244,10 +259,10 @@ def test_bn_stats_kernel_matches_float64(cuda, shape, dtype, offset):
     x = flat[offset:].view(shape)  # contiguous; offset 1 moves its base off 16-byte alignment
     plan = K3.launch_plan(shape, x.element_size(), x.data_ptr() % 16 == 0)
     assert (x.data_ptr() % 16 == 0) == (offset == 0) and (not plan.vector if offset else True)
-    K3.reset_launch_count()
+    _zero_counts()
     s, s2 = K3._launch_kernel(x)
     torch.cuda.synchronize()
-    assert K3.launch_count == 1
+    assert launches("k3") == 1
     dims = (0,) + tuple(range(2, x.dim()))
     x64 = x.double()
     ref_s, ref_q = x64.sum(dims), (x64 * x64).sum(dims)
@@ -273,14 +288,14 @@ def test_bn_stats_kernel_matches_float64(cuda, shape, dtype, offset):
 
 def test_bn_stats_kernel_raises_on_other_layouts(cuda):
     x = torch.randn(4, 8, 6, 6, device="cuda")
-    K3.reset_launch_count()
+    _zero_counts()
     with pytest.raises(ValueError):
         K3.bn_stats(x.to(memory_format=torch.channels_last))
     with pytest.raises(ValueError):
         K3.bn_stats(x[:, :, :, :3])
     with pytest.raises(ValueError):
         K3.bn_stats(x.half())
-    assert K3.launch_count == 0
+    assert launches("k3") == 0
 
 
 def test_bn_stats_streams_keep_their_own_tickets(cuda):
@@ -310,9 +325,9 @@ def test_bn_stats_streams_keep_their_own_tickets(cuda):
 
 
 def test_short_training_matches_cpu(cuda):
-    K3.reset_launch_count()
+    _zero_counts()
     gpu = run_short_train(cuda)
-    assert K3.launch_count == 40  # 20 BatchNorms x 2 train steps
+    assert launches("k3") == 40  # 20 BatchNorms x 2 train steps
     gaps = short_train_gaps(gpu, run_short_train("cpu"))
     for k, gap in gaps.items():
         assert gap <= SHORT_TRAIN_TOL[k], (k, gap)
@@ -324,11 +339,11 @@ def test_hoisted_engine_matches_full_decode(cuda):
     strategy = tuple(dataclasses.replace(s, epoch=20) for s in opt_default)
     outs = []
     for hoist in (True, False):
-        K.reset_launch_count()
+        _zero_counts()
         config = OptConfig(save_mid_freq=10, stage_hoist_decode=hoist)
         outs.append(optimize_batch(mano, params, batch, strategy, config)[0])
         torch.cuda.synchronize()
-        assert K.launch_count == 1
+        assert launches("k1") == 1
     assert max(float((outs[0][k] - outs[1][k]).abs().max()) for k in params) <= 5e-5
 
 
@@ -338,15 +353,12 @@ def test_short_opt_eval_matches_cpu(cuda):
     assert all(v <= SHORT_EVAL_RTOL for v in gaps.values()), gaps
 
 
-def _zero_counts():
-    for mod in (K, NC, K3):
-        mod.reset_launch_count()
 
 
 def test_short_predict_matches_cpu(cuda):
     _zero_counts()
     gpu = run_short_predict(cuda)
-    assert (K.launch_count, NC.launch_count, K3.launch_count) == (0, 0, 0)  # eval-mode BN, no collision
+    assert (launches("k1"), launches("k2"), launches("k3")) == (0, 0, 0)  # eval-mode BN, no collision
     cpu = run_short_predict("cpu")
     for k, ref in cpu["fp32"].items():
         assert allclose_ratio(gpu["fp32"][k], ref, **PREDICT_TOL) <= 1.0, k
@@ -365,7 +377,7 @@ def test_tracker_step_launches_the_exact_kernel_once(cuda):
     _zero_counts()
     state, results = tracker.step(state, batch, params)
     torch.cuda.synchronize()
-    assert (K.launch_count, NC.launch_count, K3.launch_count) == (1, 0, 0)
+    assert (launches("k1"), launches("k2"), launches("k3")) == (1, 0, 0)
     assert state.frame_idx == 1 and bool(torch.isfinite(results["collision_loss"]).all())
 
 
@@ -387,7 +399,7 @@ def test_bf16_train_step_launches_k3_on_bf16(cuda):
     torch.cuda.synchronize()
     for h in hooks:
         h.remove()
-    assert K3.launch_count == 53 and dtypes == [torch.bfloat16] * 53
+    assert launches("k3") == 53 and dtypes == [torch.bfloat16] * 53
     assert all(bool(torch.isfinite(v).all()) for v in metrics.values())
 
 
@@ -422,11 +434,11 @@ def test_exact_kernel_in_the_loop_launches_once_a_step(cuda):
         mano = synthetic_mano_model(device=dev)
         params, batch = make_opt_inputs(mano, batch=2, seed=0, variant="interlocked")
         leaves = {k: params[k].clone().requires_grad_(True) for k in ("right_orient", "left_orient")}
-        K.reset_launch_count()
+        _zero_counts()
         total, _ = compute_losses(mano, {**params, **leaves}, batch, weights, config, in_loop=True)
         grads.append([g.cpu() for g in torch.autograd.grad(total, list(leaves.values()))])
         torch.cuda.synchronize()
-        assert K.launch_count == (1 if dev.type == "cuda" else 0)
+        assert launches("k1") == (1 if dev.type == "cuda" else 0)
     scale = max(float(g.abs().max()) for g in grads[1])
     for a, b in zip(*grads):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5 * scale)

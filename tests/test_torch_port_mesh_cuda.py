@@ -26,12 +26,11 @@ import warnings
 import pytest
 import torch
 
+from ihmr_tpu_torch import profiling
 from ihmr_tpu_torch.data import make_opt_inputs
 from ihmr_tpu_torch.device import set_fp32_matmul_precision
 from ihmr_tpu_torch.mano import synthetic_mano_model
 from ihmr_tpu_torch.models.resnet import BatchNorm
-from ihmr_tpu_torch.ops import bn_stats as K3
-from ihmr_tpu_torch.ops import exact_collision as K1
 from ihmr_tpu_torch.parallel import gather_to_host, make_mesh, replicate, shard_batch
 from ihmr_tpu_torch.pipeline import (
     DP_REPEAT_TOL,
@@ -67,11 +66,11 @@ def test_sharded_opt_on_one_card_matches_one_device(cuda):
     config = OptConfig(save_mid_freq=2)
     one, _ = optimize_batch(mano, params, batch, strategy, config)
     mesh = make_mesh([cuda] * 2)
-    K1.reset_launch_count()
-    out, results = optimize_batch(replicate(mano, mesh), shard_batch(params, mesh), shard_batch(batch, mesh),
-                                  strategy, config)
-    torch.cuda.synchronize()
-    assert K1.launch_count == 2
+    with profiling.recording() as rec:
+        out, results = optimize_batch(replicate(mano, mesh), shard_batch(params, mesh), shard_batch(batch, mesh),
+                                      strategy, config)
+        torch.cuda.synchronize()
+    assert rec.counters.get("k1.launches", 0) == 2
     out = gather_to_host(out)
     gap = max(float((torch.as_tensor(out[k]) - v.cpu()).abs().max()) for k, v in one.items())
     assert gap <= OPT_TOL, gap
@@ -82,12 +81,11 @@ def _check_dp_step(inputs, mesh):
     one = one_device_grads(inputs)
     bns = sum(isinstance(m, BatchNorm) for m in inputs.state.encoder.modules())
     torch.cuda.synchronize()
-    K3.reset_launch_count()
-    with warnings.catch_warnings(record=True) as caught:
+    with profiling.recording() as rec, warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         dp = dp_grads(inputs, mesh)
-    torch.cuda.synchronize()
-    assert K3.launch_count == bns * mesh.size
+        torch.cuda.synchronize()
+    assert rec.counters.get("k3.launches", 0) == bns * mesh.size
     assert not [w for w in caught if "AccumulateGrad" in str(w.message)]
     gaps = dp_gaps(dp, one)
     assert dp_within(gaps, DP_TOL), gaps

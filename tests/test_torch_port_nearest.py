@@ -37,6 +37,7 @@ from ihmr_tpu.ops import collision as JC
 from ihmr_tpu.ops.pallas_collision import nearest_centroid_pallas
 from ihmr_tpu.refine.mlp_engine import seed_from_backbone as jax_seed
 from ihmr_tpu.refine.opt_engine import forward as jax_forward
+from ihmr_tpu_torch import profiling
 from ihmr_tpu_torch.ops import collision as TC
 from ihmr_tpu_torch.ops import nearest_centroid as NC
 from tests.test_collision import icosphere
@@ -126,9 +127,9 @@ def test_planted_ties(dup, expect):
 
 def test_cpu_path_does_not_count_launches(hands):
     rv, lv, _, faces_l = hands
-    NC.reset_launch_count()
-    NC.nearest_centroid(T(rv), TC._centroids(T(lv[:, faces_l])))
-    assert NC.launch_count == 0
+    with profiling.recording() as rec:
+        NC.nearest_centroid(T(rv), TC._centroids(T(lv[:, faces_l])))
+    assert rec.counters.get("k2.launches", 0) == 0
 
 
 def test_nearest_wrapper_rejects_bad_shapes():

@@ -88,13 +88,13 @@ def test_scan_covers_the_package():
         "ihmr_tpu_torch/train/checkpoint.py",
         "ihmr_tpu_torch/train/loops.py",
         "ihmr_tpu_torch/train/mlp.py",
-        "ihmr_tpu_torch/train/profiling.py",
         "ihmr_tpu_torch/train/stats.py",
         "ihmr_tpu_torch/utils/io_utils.py",
         "ihmr_tpu_torch/utils/live_dashboard.py",
         "ihmr_tpu_torch/utils/train_visuals.py",
         "ihmr_tpu_torch/utils/vis.py",
         "ihmr_tpu_torch/utils/visualizer.py",
+        "ihmr_tpu_torch/profiling.py",
         "ihmr_tpu_torch/parallel/dist.py",
         "ihmr_tpu_torch/parallel/__init__.py",
     } <= names

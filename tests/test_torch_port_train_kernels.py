@@ -19,8 +19,8 @@ import jax
 import numpy as np
 
 from ihmr_tpu.train import baseline as JB
+from ihmr_tpu_torch import profiling
 from ihmr_tpu_torch.mano import mirror_mano_model, synthetic_mano_model
-from ihmr_tpu_torch.ops import bn_stats as K3
 from ihmr_tpu_torch.train import baseline as TB
 from tests.test_torch_port_nearest import jax_tpu_branch
 from tests.test_torch_port_train import (  # noqa: F401  (one_torch_thread and setup are fixtures)
@@ -38,9 +38,9 @@ from tests.test_torch_port_train import (  # noqa: F401  (one_torch_thread and s
 
 def test_train_step_matches_jax_pallas_bn(setup):
     """PallasStatsBatchNorm (K3 in interpret mode) against bn_impl="pallas"."""
-    K3.reset_launch_count()
-    ours = _run_torch(setup, "pallas")
-    assert K3.launch_count == 0  # CPU tensors take the plain version
+    with profiling.recording() as rec:
+        ours = _run_torch(setup, "pallas")
+    assert rec.counters.get("k3.launches", 0) == 0  # CPU tensors take the plain version
     _check_step1(_run_jax(setup, "pallas"), ours)
 
 
@@ -51,9 +51,9 @@ def test_eval_step_matches_jax_exact_backend(setup):
         jm, jo = _np(JB.eval_step(enc, s, batch, mr, ml, cfg))
     state = _torch_state({"params": _np(s.params), "batch_stats": _np(s.batch_stats)}, "pallas", setup["mean"])
     tr = synthetic_mano_model(device="cpu")
-    K3.reset_launch_count()
-    tm, to = TB.eval_step(state, _torch_batch(batch), tr, mirror_mano_model(tr), TB.TrainConfig(lr=LR))
-    assert K3.launch_count == 0 and not state.encoder.training
+    with profiling.recording() as rec:
+        tm, to = TB.eval_step(state, _torch_batch(batch), tr, mirror_mano_model(tr), TB.TrainConfig(lr=LR))
+    assert rec.counters.get("k3.launches", 0) == 0 and not state.encoder.training
     for k, v in jm.items():
         np.testing.assert_allclose(tm[k].item(), v, rtol=1e-5, atol=1e-7, err_msg=k)
     np.testing.assert_allclose(to["collision_loss_origin_scale"].numpy(), jo["collision_loss_origin_scale"], atol=1e-5)
