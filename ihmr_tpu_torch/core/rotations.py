@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ihmr_tpu_torch.device import constant
+
 _EPS = 1e-8
 
 
@@ -52,7 +54,7 @@ def flip_hand_pose(pose: torch.Tensor) -> torch.Tensor:
     flat = pose.shape[-1] != 3 or pose.dim() == 1
     shape = pose.shape
     vecs = pose.reshape(shape[:-1] + (-1, 3)) if flat else pose
-    vecs = vecs * torch.tensor([1.0, -1.0, -1.0], dtype=pose.dtype, device=pose.device)
+    vecs = vecs * constant((1.0, -1.0, -1.0), pose.dtype, pose.device)
     return vecs.reshape(shape) if flat else vecs
 
 

@@ -7,6 +7,7 @@ silent fallback.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Union
 
 import torch
@@ -33,3 +34,14 @@ def set_fp32_matmul_precision() -> None:
     parity tolerances assume (the JAX side pins Precision.HIGH/HIGHEST)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+@functools.lru_cache(maxsize=None)
+def constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype, device=device)``, made once per
+    values, dtype and device and shared by every caller: never write into it.
+    A constant of the OPT step copied from the host at every call would
+    keep the step out of a CUDA graph (refine/opt_graph.py). Made outside
+    inference mode, so that autograd may save it whoever asks first."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype, device=device)

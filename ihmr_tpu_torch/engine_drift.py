@@ -159,7 +159,8 @@ def stage_drift(mano, entry, batch, stage, tol):
     for hoist in (True, False):
         recs[hoist] = Recorder()
         with recs[hoist].patched():
-            outs[hoist] = TE.run_stage(mano, entry, batch, stage, TE.OptConfig(stage_hoist_decode=hoist))
+            # eager steps: the recorder patches names that a captured step would call only once
+            outs[hoist] = TE.run_stage(mano, entry, batch, stage, TE.OptConfig(stage_hoist_decode=hoist), _graph=False)
     rh, rf = recs[True], recs[False]
     gaps = torch.stack([_sample_gap(a, b, groups, B) for a, b in zip(rh.steps, rf.steps)])  # (steps, B)
     none = gaps.new_zeros((1, B), dtype=torch.long)  # a stage without in-loop collision

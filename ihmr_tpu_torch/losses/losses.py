@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ihmr_tpu_torch.core.rotations import axis_angle_to_matrix
+from ihmr_tpu_torch.device import constant
 
 _EPS = 1e-7
 
@@ -39,6 +40,7 @@ _FINGER_CHAINS = np.array(
     ]
 )
 FINGER_JOINT_IDXS = np.concatenate([_FINGER_CHAINS.reshape(-1), _FINGER_CHAINS.reshape(-1) + 21])
+_FINGER_IDS = tuple(FINGER_JOINT_IDXS.tolist())  # for ``device.constant``
 
 
 def hand_type_loss(
@@ -136,7 +138,7 @@ def finger_terms(joints_3d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Each finger's 4-joint chain -> (C1, C2), (B, 10) each: with bone
     vectors f0, f1, f2, C1 = f2 . (f0 x f1) and C2 = (f0 x f1) . (f1 x f2)."""
     B = joints_3d.shape[0]
-    chains = joints_3d[:, FINGER_JOINT_IDXS, :].reshape(B, 10, 4, 3)
+    chains = joints_3d[:, constant(_FINGER_IDS, torch.int64, joints_3d.device), :].reshape(B, 10, 4, 3)
     bones = chains[:, :, :3, :] - chains[:, :, 1:, :]  # (B, 10, 3, 3)
     f0, f1, f2 = bones[:, :, 0], bones[:, :, 1], bones[:, :, 2]
     c01 = torch.linalg.cross(f0, f1)

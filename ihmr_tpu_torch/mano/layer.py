@@ -25,9 +25,12 @@ from typing import Optional, Tuple
 import torch
 
 from ihmr_tpu_torch.core.rotations import axis_angle_to_matrix, flip_hand_pose
+from ihmr_tpu_torch.device import constant
 from ihmr_tpu_torch.mano.model import FINGERTIP_VERTEX_IDS, MANO_PARENTS, ManoModel
 
 _PARENTS = [int(p) for p in MANO_PARENTS]
+# indices as device constants: a Python list index is copied to the device at every call
+_PARENT_IDS = tuple(_PARENTS[1:])
 
 
 def mano_decode(
@@ -57,7 +60,7 @@ def shape_rest_parts(
     v_shaped = model.v_template + torch.einsum("bs,vcs->bvc", betas.to(dtype), model.shapedirs)
     j_rest = torch.einsum("jv,bvc->bjc", model.j_regressor, v_shaped)
     parent_pos = torch.cat(
-        [torch.zeros_like(j_rest[:, :1]), j_rest[:, _PARENTS[1:]]], dim=1
+        [torch.zeros_like(j_rest[:, :1]), j_rest[:, constant(_PARENT_IDS, torch.int64, j_rest.device)]], dim=1
     )
     return v_shaped, j_rest, j_rest - parent_pos
 
@@ -103,7 +106,7 @@ def _decode_from_parts(
 
 def joints21(verts: torch.Tensor, lbs_joints: torch.Tensor) -> torch.Tensor:
     """Append the 5 fingertip vertices to the 16 LBS joints -> (B, 21, 3)."""
-    return torch.cat([lbs_joints, verts[:, list(FINGERTIP_VERTEX_IDS)]], dim=1)
+    return torch.cat([lbs_joints, verts[:, constant(FINGERTIP_VERTEX_IDS, torch.int64, verts.device)]], dim=1)
 
 
 @dataclass(frozen=True)
@@ -187,7 +190,7 @@ def _mirror_and_anchor(
     joints = joints21(verts, lbs_j)
     right_verts, left_verts = verts[:B], verts[B:]
     right_joints, left_joints = joints[:B], joints[B:]
-    mirror = torch.tensor([-1.0, 1.0, 1.0], dtype=verts.dtype, device=verts.device)
+    mirror = constant((-1.0, 1.0, 1.0), verts.dtype, verts.device)
     left_verts = left_verts * mirror
     left_joints = left_joints * mirror
     shift = trans[:, None, :] + right_joints[:, 0:1, :] - left_joints[:, 0:1, :]

@@ -18,6 +18,7 @@ trainer) divides first and multiplies the quotient by the learning rate
 
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
@@ -52,6 +53,51 @@ class Adam:
             m_hat, denom = self.m[k] / c1, torch.sqrt(self.v[k] / c2) + EPS
             out[k] = p - (lr * (m_hat / denom) if self.lr_last else lr * m_hat / denom)
         return out
+
+
+@functools.lru_cache(maxsize=None)
+def bias_corrections(steps: int, device: torch.device) -> torch.Tensor:
+    """(steps, 2) fp32 on ``device``: row t - 1 holds what ``Adam.step``
+    divides the moments by at its t-th step, 1 - b1^t and 1 - b2^t, as that
+    division rounds there. ``Adam.step`` divides by a Python float; PyTorch's
+    CUDA true division by a host scalar multiplies by the scalar's fp32
+    reciprocal, so on a card the rows hold the reciprocals (a 0-dim device
+    divisor would round otherwise) and ``adam_update_`` multiplies by them.
+    Made once per length and device; never write into it."""
+    cuda = device.type == "cuda"
+    one = torch.tensor(1.0, dtype=torch.float32)
+    rows = []
+    for t in range(1, steps + 1):
+        tt = torch.tensor(float(t), dtype=torch.float32)
+        c = torch.stack([1.0 - _B1_F32**tt, 1.0 - _B2_F32**tt])
+        rows.append(one / c if cuda else c)
+    with torch.inference_mode(False):
+        return torch.stack(rows).to(device)
+
+
+@torch.no_grad()
+def adam_update_(
+    params: Dict[str, torch.Tensor],
+    grads: Dict[str, torch.Tensor],
+    m: Dict[str, torch.Tensor],
+    v: Dict[str, torch.Tensor],
+    corr: torch.Tensor,
+    lr: float,
+) -> None:
+    """One Adam step of the OPT engine in place, for a captured CUDA graph:
+    ``params``, ``m`` and ``v`` are overwritten, and the step's bias
+    corrections are read from the device (``corr``, a row of
+    ``bias_corrections``), so that the step count need not be known when the
+    graph is captured. The same kernels and rounding as ``Adam.step`` with
+    ``lr_last=False``, whose own code serves every other caller."""
+    for k, p in params.items():
+        torch.add(B1 * m[k], (1 - B1) * grads[k], out=m[k])
+        torch.add(B2 * v[k], (1 - B2) * grads[k] ** 2, out=v[k])
+        if p.is_cuda:
+            m_hat, v_hat = m[k] * corr[0], v[k] * corr[1]
+        else:
+            m_hat, v_hat = m[k] / corr[0], v[k] / corr[1]
+        torch.sub(p, lr * m_hat / (torch.sqrt(v_hat) + EPS), out=p)
 
 
 SGD_MOMENTUM = 0.9

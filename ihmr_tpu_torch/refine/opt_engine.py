@@ -43,6 +43,11 @@ is invariant to that uniform 1/B gradient scale (up to eps), so per-sample
 trajectories do not depend on the batch size. SGD's are scaled by 1/B, as
 in the JAX package.
 
+On a card, outside a shard, an Adam stage whose in-loop collision is the
+frozen ``tris`` payload (or skipped at weight 0) replays each step as one
+CUDA graph (``_StageGraph``, refine/opt_graph.py): the step's kernels and
+bits, launched by one call. The snapshots and payload rebuilds stay eager.
+
 Data parallel: ``optimize_batch`` on ``Sharded`` params and batch
 (``parallel.mesh.shard_batch``) runs the engine once per shard, each on its
 device; inside a shard the loss is the shard's batch mean weighted by its
@@ -69,6 +74,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from ihmr_tpu_torch.core.projection import orthographic_project
+from ihmr_tpu_torch.device import constant
 from ihmr_tpu_torch.losses import losses as L
 from ihmr_tpu_torch.mano.layer import (
     HandParams,
@@ -94,7 +100,8 @@ from ihmr_tpu_torch.ops.collision import (
 from ihmr_tpu_torch.ops.grid_sdf import pair_depths_grid, pair_grids
 from ihmr_tpu_torch.parallel.mesh import Replicated, Sharded, current_shard, replicate
 from ihmr_tpu_torch.profiling import count, span
-from ihmr_tpu_torch.refine.adam import SGD, Adam
+from ihmr_tpu_torch.refine import opt_graph
+from ihmr_tpu_torch.refine.adam import SGD, Adam, adam_update_, bias_corrections
 from ihmr_tpu_torch.refine.schedule import OPT_DEFAULT_LOSS_WEIGHTS, Stage
 
 ParamDict = Dict[str, torch.Tensor]
@@ -422,6 +429,13 @@ def compute_losses(
         return total, aux
 
 
+def _bar_margins(stage: Stage, device: torch.device) -> torch.Tensor:
+    """(NF,) each filter loss's bar over its first snapshot's value, (pct +
+    0.1) / 100, as a device constant: a copy from the host at each stage's
+    entry would wait for the card to finish the steps queued before it."""
+    return constant(tuple((float(pct) + 0.1) / 100.0 for _n, pct in stage.filter_loss), torch.float32, device)
+
+
 _FILTER_KEYS = {
     "joints_3d_loss_p": "joints_3d_loss_p_batch",
     "joints_2d_loss_p": "joints_2d_loss_p_batch",
@@ -480,73 +494,210 @@ def _lazy_coll_payload(
     return tuple(out)
 
 
+def _stage_grads(model, leaves, frozen, batch, stage, config, fwd_fn, skip_zero_collision, parity=None, **payload):
+    """The in-loop losses of a stage at ``leaves`` (which require grad) and
+    their gradient -> (aux losses, {leaf name: gradient}): the step of
+    ``run_stage``'s eager engine and of its captured graph (``_StageGraph``)
+    but the update."""
+    total, aux = compute_losses(
+        model, {**frozen, **leaves}, batch, stage.weights, config, in_loop=True, fwd_fn=fwd_fn,
+        coll_parity=parity, skip_zero_collision=skip_zero_collision, **payload,
+    )
+    with span("opt.backward"):
+        grads = torch.autograd.grad(_global_mean(total), list(leaves.values()))
+    return {k: a.detach() for k, a in aux.items()}, dict(zip(leaves, grads))
+
+
+@dataclass(frozen=True, eq=False)
+class _StageForward:
+    """A stage's hoisted forward, params -> (rv, lv, joints3d, joints2d):
+    ``fn(model, tensors, p)``, with the tensors it reads kept apart so that
+    a captured step (``_StageGraph``) can read copies of them."""
+
+    fn: Callable
+    model: ManoModel
+    tensors: Tuple[torch.Tensor, ...]
+
+    def __call__(self, p: ParamDict):
+        return self.fn(self.model, self.tensors, p)
+
+
+def _rigid_forward(model, tensors, p):
+    # both meshes are rigid: trans enters the mirrored composition additively on the left hand only
+    rv0, lv0, j0 = tensors
+    t = p["trans"][:, None, :]
+    joints = torch.cat([j0[:, :21], j0[:, 21:] + t], dim=1)
+    return rv0, lv0 + t, joints, orthographic_project(joints, p["cam"])
+
+
+def _orient_forward(model, tensors, p):
+    rv, lv, joints = two_hand_decode_from_identity(*tensors, p["right_orient"], p["left_orient"], p["trans"])
+    return rv, lv, joints, orthographic_project(joints, p["cam"])
+
+
+def _shape_forward(model, tensors, p):
+    rv0, lv0, j0, brv, blv, bj, shape_r0, shape_l0 = tensors
+    rv, lv, joints = two_hand_decode_from_shape_affine(
+        (rv0, lv0, j0), (brv, blv, bj), shape_r0, shape_l0, p["right_shape"], p["left_shape"], p["trans"]
+    )
+    return rv, lv, joints, orthographic_project(joints, p["cam"])
+
+
+def _pose_forward(model, tensors, p):
+    rv, lv, joints = two_hand_decode_from_pose_payload(model, tensors, p["right_pose"], p["left_pose"], p["trans"])
+    return rv, lv, joints, orthographic_project(joints, p["cam"])
+
+
 @torch.no_grad()
-def _make_stage_forward(
-    model: ManoModel, stage: Stage, params_entry: ParamDict
-) -> Optional[Callable[[ParamDict], Tuple[torch.Tensor, ...]]]:
+def _make_stage_forward(model: ManoModel, stage: Stage, params_entry: ParamDict) -> Optional[_StageForward]:
     """The stage's exact forward with the decode partially evaluated against
     its frozen groups, or None when no hoist applies (a stage that updates a
     shaping group together with orient).
 
     ``params_entry`` are the params entering the stage; the groups the stage
     does not update keep those values for the whole stage. The four cases
-    are tested in the JAX package's order: trans/cam only, orients, shapes,
-    poses (each together with trans and cam)."""
+    are tested in the JAX package's order: trans/cam only (both meshes
+    decoded once at trans=0), orients, shapes, poses (each together with
+    trans and cam)."""
     up = set(stage.update_params)
     pe = params_entry
     if up <= {"trans", "cam"}:
-        # both meshes are rigid: decode once at trans=0; trans enters the
-        # mirrored composition additively on the left hand only
         rv0, lv0, j0 = two_hand_decode_mirrored(
             model, pe["right_orient"], pe["left_orient"], pe["right_pose"], pe["left_pose"],
             pe["right_shape"], pe["left_shape"], torch.zeros_like(pe["trans"]),
         )
-
-        def fwd(p):
-            t = p["trans"][:, None, :]
-            joints = torch.cat([j0[:, :21], j0[:, 21:] + t], dim=1)
-            return rv0, lv0 + t, joints, orthographic_project(joints, p["cam"])
-
-        return fwd
+        return _StageForward(_rigid_forward, model, (rv0, lv0, j0))
     if up <= {"right_orient", "left_orient", "trans", "cam"}:
-        verts_id, lbsj_id = two_hand_identity_orient_payload(
+        tensors = two_hand_identity_orient_payload(
             model, pe["right_pose"], pe["left_pose"], pe["right_shape"], pe["left_shape"]
         )
-
-        def fwd(p):
-            rv, lv, joints = two_hand_decode_from_identity(
-                verts_id, lbsj_id, p["right_orient"], p["left_orient"], p["trans"]
-            )
-            return rv, lv, joints, orthographic_project(joints, p["cam"])
-
-        return fwd
+        return _StageForward(_orient_forward, model, tuple(tensors))
     if up <= {"right_shape", "left_shape", "trans", "cam"}:
         base, basis = two_hand_shape_affine_payload(
             model, pe["right_orient"], pe["left_orient"], pe["right_pose"], pe["left_pose"],
             pe["right_shape"], pe["left_shape"],
         )
-        shape_r0, shape_l0 = pe["right_shape"], pe["left_shape"]
-
-        def fwd(p):
-            rv, lv, joints = two_hand_decode_from_shape_affine(
-                base, basis, shape_r0, shape_l0, p["right_shape"], p["left_shape"], p["trans"]
-            )
-            return rv, lv, joints, orthographic_project(joints, p["cam"])
-
-        return fwd
+        return _StageForward(_shape_forward, model, (*base, *basis, pe["right_shape"], pe["left_shape"]))
     if up <= {"right_pose", "left_pose", "trans", "cam"}:
-        payload = two_hand_pose_payload(
+        tensors = two_hand_pose_payload(
             model, pe["right_orient"], pe["left_orient"], pe["right_shape"], pe["left_shape"]
         )
-
-        def fwd(p):
-            rv, lv, joints = two_hand_decode_from_pose_payload(
-                model, payload, p["right_pose"], p["left_pose"], p["trans"]
-            )
-            return rv, lv, joints, orthographic_project(joints, p["cam"])
-
-        return fwd
+        return _StageForward(_pose_forward, model, tuple(tensors))
     return None
+
+
+def _like(x: torch.Tensor) -> torch.Tensor:
+    return torch.empty_strided(x.size(), x.stride(), dtype=x.dtype, device=x.device)
+
+
+def _batch_fields(batch: OptBatch):
+    return [(f.name, getattr(batch, f.name)) for f in dataclasses.fields(OptBatch)]
+
+
+class _StageGraph:
+    """The block engine's step at one stage key (``run_stage``): the
+    gradient of the in-loop losses at the stage's leaves and Adam's update
+    in place, as one ``opt_graph.StepGraph``. Its static state: the leaves,
+    the frozen groups, every field of the batch, the hoisted forward's
+    tensors, the frozen triangles of the superblock (``set_tris``), Adam's
+    moments and the step's bias corrections. Tensors are laid out as the
+    eager engine's (``_like``), so every kernel sees the strides it sees
+    there."""
+
+    def __init__(self, model, stage, config, skip_zero_collision, subset, frozen, batch, fwd, device):
+        self.model, self.stage, self.config, self.skip = model, stage, config, skip_zero_collision
+        self.leaves = {k: _like(x) for k, x in subset.items()}
+        self.frozen = {k: _like(x) for k, x in frozen.items()}
+        self.batch = OptBatch(**{name: _like(x) for name, x in _batch_fields(batch)})
+        self.fwd = None if fwd is None else dataclasses.replace(fwd, tensors=tuple(map(_like, fwd.tensors)))
+        self.m = {k: torch.zeros_like(x) for k, x in subset.items()}
+        self.v = {k: torch.zeros_like(x) for k, x in subset.items()}
+        self.corr = torch.empty((2,), dtype=torch.float32, device=device)  # the step's row of ``table``
+        self.table = None
+        self.tris = None
+        written = [*self.leaves.values(), *self.m.values(), *self.v.values()]
+        self.graph = opt_graph.StepGraph(self._step, written, device)
+
+    @staticmethod
+    def layout(subset, frozen, batch, fwd) -> tuple:
+        """What a capture bakes in of the stage's inputs: names, shapes,
+        strides, dtypes."""
+        named = [*subset.items(), *frozen.items(), *_batch_fields(batch), *enumerate(fwd.tensors if fwd else ())]
+        return tuple((k, tuple(t.shape), t.stride(), t.dtype) for k, t in named)
+
+    def enter(self, subset, frozen, batch, fwd, steps: int) -> None:
+        """Copy a stage's entry values in, with fresh moments."""
+        with torch.no_grad():
+            for k, x in subset.items():
+                self.leaves[k].copy_(x)
+            for k, x in frozen.items():
+                self.frozen[k].copy_(x)
+            for name, x in _batch_fields(batch):
+                getattr(self.batch, name).copy_(x)
+            for t, x in zip(self.fwd.tensors if fwd else (), fwd.tensors if fwd else ()):
+                t.copy_(x)
+            for x in (*self.m.values(), *self.v.values()):
+                x.zero_()
+        self.table = bias_corrections(steps, self.corr.device)
+
+    def set_tris(self, tris) -> None:
+        """The superblock's frozen (tri_r, tri_l, scale)."""
+        if self.tris is None:
+            self.tris = tuple(map(_like, tris))
+        for t, x in zip(self.tris, tris):
+            t.copy_(x)
+
+    def step(self, j: int) -> Dict[str, torch.Tensor]:
+        """Step ``j`` of the stage -> the in-loop aux losses at the params
+        before its update (overwritten by the next step)."""
+        self.corr.copy_(self.table[j])
+        return self.graph.replay()
+
+    def _step(self):
+        leaves = {k: x.detach().requires_grad_(True) for k, x in self.leaves.items()}
+        payload = {} if self.tris is None else {"coll_tris": self.tris}
+        aux, grads = _stage_grads(
+            self.model, leaves, self.frozen, self.batch, self.stage, self.config, self.fwd, self.skip, **payload
+        )
+        adam_update_(self.leaves, grads, self.m, self.v, self.corr, self.stage.lr)
+        return aux
+
+
+def _capturable(config: OptConfig, stage: Stage, skip_zero_collision: bool) -> bool:
+    """Whether ``run_stage``'s step on this stage has fixed shapes, waits
+    on no device value and reads a payload that can be copied into a
+    static buffer: Adam, with the stage's collision skipped at weight 0 or
+    the default frozen triangles (``tris``, no parity alternation)."""
+    coll_zero = skip_zero_collision and float(stage.weights["collision_loss_weight"]) == 0.0
+    alternate = config.loop_collision_alternate and config.loop_collision_subsample == 2
+    tris = config.lazy_active() and not config.grid_in_loop() and config.loop_collision_freeze_positions
+    return config.optimizer == "adam" and (coll_zero or (tris and not alternate))
+
+
+def _engages(config: OptConfig, stage: Stage, skip_zero_collision: bool, device: torch.device) -> bool:
+    """Whether ``run_stage`` replays the stage's steps as a captured graph:
+    a capturable step (``_capturable``) on a card, outside a shard of
+    ``parallel.mesh`` (the mesh's threads would collide with a capture)."""
+    return device.type == "cuda" and current_shard() is None and _capturable(config, stage, skip_zero_collision)
+
+
+def _stage_graph(model, stage, config, skip_zero_collision, subset, frozen, batch, fwd, steps, device) -> _StageGraph:
+    """The kept graph of the stage's key, its entry values copied in. The
+    key holds everything a capture bakes in but the step count and the
+    values: so a stage cut to fewer steps (the benchmark's warm-up) captures
+    the graph that the full stage replays."""
+    key = (
+        device, id(model),
+        stage.update_params, stage.loss_weights, stage.lr, stage.filter_loss, stage.select_loss,
+        config.loop_collision_subsample, config.loop_collision_face_subsample, config.loop_collision_margin,
+        config.robustifier, config.loop_collision_freeze_positions, skip_zero_collision,
+        None if fwd is None else fwd.fn,
+    )
+    layout = _StageGraph.layout(subset, frozen, batch, fwd)
+    g = opt_graph.cached(key, layout, lambda: _StageGraph(model, stage, config, skip_zero_collision, subset, frozen,
+                                                           batch, fwd, device))
+    g.enter(subset, frozen, batch, fwd, steps)
+    return g
 
 
 def run_stage(
@@ -556,10 +707,19 @@ def run_stage(
     stage: Stage,
     config: OptConfig,
     skip_zero_collision: bool = True,
+    _graph: Optional[bool] = None,
 ) -> ParamDict:
     """One refinement stage with the block engine described in the module
     docstring -> params with the stage's groups set to each sample's best
     snapshot.
+
+    On a card, outside a shard of ``parallel.mesh``, an Adam stage whose
+    in-loop collision is the frozen ``tris`` payload, or skipped at weight
+    0, runs each step as one replay of a captured CUDA graph
+    (``_StageGraph``, ``opt_graph``), with the eager steps' kernels and
+    bits; the graph is kept per stage key and captured once. Every other
+    stage steps eagerly. ``_graph`` (tests): False steps eagerly, True
+    takes the graph's path on any device (off the card uncaptured).
 
     The collision payload depends on the config: a superblock's frozen
     triangles (``tris``), its frozen selection (``idx``) or its grids
@@ -570,26 +730,32 @@ def run_stage(
     engine on a strategy where some stage weighs collision: a weight-0 stage
     then still computes collision (its per-sample values enter the filter)
     and builds payloads."""
-    w = stage.weights
     filter_names = [name for name, _pct in stage.filter_loss]
     select_key = _FILTER_KEYS[stage.select_loss]
     device = params["trans"].device
     B = batch.hand_type_array.shape[0]
-    bars_pct = torch.tensor(
-        [(float(pct) + 0.1) / 100.0 for _n, pct in stage.filter_loss], dtype=torch.float32, device=device
-    )
+    bars_pct = _bar_margins(stage, device)
     alternate = config.loop_collision_alternate and config.loop_collision_subsample == 2
-    coll_zero = skip_zero_collision and float(w["collision_loss_weight"]) == 0.0
+    coll_zero = skip_zero_collision and float(stage.weights["collision_loss_weight"]) == 0.0
     grid_mode = config.grid_in_loop()
     payload_mode = "grid" if grid_mode else ("tris" if config.loop_collision_freeze_positions else "idx")
     parities = (0, 1) if alternate else (None,)
     blocked = (not coll_zero) and (config.lazy_active() or grid_mode)  # a block payload exists
     steps = stage.epoch + 1
+    if _graph is None:
+        _graph = _engages(config, stage, skip_zero_collision, device)
+    elif _graph and not _capturable(config, stage, skip_zero_collision):
+        raise ValueError("run_stage: this stage's in-loop path has no graph")
 
     subset = {k: params[k].detach().clone() for k in stage.update_params}
     frozen = {k: v.detach() for k, v in params.items() if k not in stage.update_params}
     fwd_fn = _make_stage_forward(model, stage, params) if config.stage_hoist_decode else None
-    opt = Adam(subset) if config.optimizer == "adam" else SGD(subset)
+    graph = opt = None
+    if _graph:
+        graph = _stage_graph(model, stage, config, skip_zero_collision, subset, frozen, batch, fwd_fn, steps, device)
+        subset, fwd_fn = graph.leaves, graph.fwd  # the graph's copies, updated in place
+    else:
+        opt = Adam(subset) if config.optimizer == "adam" else SGD(subset)
     best = {k: x.detach() for k, x in subset.items()}
     best_select = torch.full((B,), float("inf"), dtype=torch.float32, device=device)
     bars = torch.zeros((len(filter_names), B), dtype=torch.float32, device=device)
@@ -601,24 +767,25 @@ def run_stage(
             entry = payload_set[j % 2] if alternate and len(payload_set) == 2 else payload_set[0]
             payload = {"coll_" + payload_mode: entry}
         leaves = {k: x.requires_grad_(True) for k, x in subset.items()}
-        total, aux = compute_losses(
-            model, {**frozen, **leaves}, batch, w, config, in_loop=True, fwd_fn=fwd_fn,
-            coll_parity=parity, skip_zero_collision=skip_zero_collision, **payload,
-        )
-        with span("opt.backward"):
-            grads = torch.autograd.grad(_global_mean(total), list(leaves.values()))
-        return {k: a.detach() for k, a in aux.items()}, dict(zip(leaves, grads))
+        return _stage_grads(model, leaves, frozen, batch, stage, config, fwd_fn, skip_zero_collision, parity, **payload)
 
-    def update(grads):
+    def step(payload_set, j):
+        """Step j: the gradient and the update -> the aux losses before it."""
         nonlocal subset
+        if graph is not None:
+            return graph.step(j)
+        aux, grads = grads_at(payload_set, j)
         with span("opt.adam"):
             subset = opt.step(subset, grads, stage.lr)
+        return aux
 
     def run_block(j0, length, payload_set):
         nonlocal best, best_select, bars
         with span("opt.step"):
             count("opt.steps")
-            aux, grads = grads_at(payload_set, j0)
+            # the snapshot takes the params before the update (which a graph makes in place)
+            before = subset if graph is None else {k: x.clone() for k, x in subset.items()}
+            aux = step(payload_set, j0)
             count("opt.snapshots")
             with span("opt.snapshot"), torch.no_grad():
                 cur = torch.stack([aux[_FILTER_KEYS[n]] for n in filter_names], dim=0)  # (NF, B)
@@ -629,12 +796,11 @@ def run_stage(
                 else:
                     improve = (cur <= bars).all(dim=0) & (cur_select < best_select)
                 best_select = torch.where(improve, cur_select, best_select)
-                best = {k: torch.where(improve[:, None], subset[k], best[k]) for k in subset}
-            update(grads)
+                best = {k: torch.where(improve[:, None], before[k], best[k]) for k in subset}
         for j in range(j0 + 1, j0 + length):  # lean steps: gradient + update only
             with span("opt.step"):
                 count("opt.steps")
-                update(grads_at(payload_set, j)[1])
+                step(payload_set, j)
 
     freq = config.save_mid_freq
     nblocks, tail = divmod(steps, freq)
@@ -645,7 +811,10 @@ def run_stage(
             return None
         count("opt.payloads")
         with span("opt.payload"):
-            return _lazy_coll_payload(model, {**frozen, **subset}, config, parities, payload_mode, fwd_fn)
+            payload = _lazy_coll_payload(model, {**frozen, **subset}, config, parities, payload_mode, fwd_fn)
+            if graph is not None:
+                graph.set_tris(payload[0])
+            return payload
 
     # superblocks of kre snapshot blocks share one payload rebuild
     nsb, rem = divmod(nblocks, kre)
@@ -684,9 +853,7 @@ def run_stage_program(
     filter_names = [name for name, _pct in stage.filter_loss]
     select_key = _FILTER_KEYS[stage.select_loss]
     device = params["trans"].device
-    bars_pct = torch.tensor(
-        [(float(pct) + 0.1) / 100.0 for _n, pct in stage.filter_loss], dtype=torch.float32, device=device
-    )
+    bars_pct = _bar_margins(stage, device)
     subset = {k: params[k].detach().clone() for k in stage.update_params}
     frozen = {k: v.detach() for k, v in params.items() if k not in stage.update_params}
     opt = Adam(subset, lr_last=True) if config.optimizer == "adam" else SGD(subset)
