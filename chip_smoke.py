@@ -53,10 +53,14 @@ Phases (each raises on failure; any failure exits non-zero before the last line)
 5. Baseline training at full width (scripts/train_bench.py's
    configuration): ResNet-50 at 224x224, B=64, TrainConfig(total_epoch=1),
    fp32 without TF32, bn_impl="pallas" (bn_stats, K3, in every train-mode
-   BatchNorm). A warm-up of 2 steps, then train_baseline_loop over 20 steps
-   with the launch counts zeroed just before and read just after (53 K3
-   launches a step), one more step under torch.profiler (exactly 53 K3
-   device kernels: one launch per BatchNorm), then one eval_step (one K1
+   BatchNorm). A warm-up of 2 steps (the first captures the train step's
+   CUDA graph), then train_baseline_loop over 20 steps under torch.profiler
+   with the counts zeroed just before and read just after: 53 K3 device
+   kernels a step in the trace (``traced_train``: a replay launches K3 from
+   the graph, where its wrapper and counter do not run), 20 graph replays,
+   no capture and no run of K3's wrapper; one more step under
+   torch.profiler (exactly 53 K3 device kernels: one launch per BatchNorm),
+   then one eval_step (one K1
    launch; its depths again through the plain version). The same 20 steps
    with bn_impl="stock", timed. K3's time per step: each BatchNorm input
    shape of one step, kernel against plain version and torch.var_mean, and
@@ -98,8 +102,10 @@ Phases (each raises on failure; any failure exits non-zero before the last line)
    reference's ``.mat`` schema), and ``IHMR_BN_IMPL=pallas train-baseline``
    with every data flag of the launcher (flip, rescale, position, rotation,
    colour jitter, motion blur with ``--blur_kernel_dir``), B=64, one epoch
-   of 4 steps: K3 53 a step asserted, losses finite, ms/step and images/sec
-   beside phase 7's PNG run and phase 5's replayed batch. Then
+   of 4 steps: K3's wrapper run 2 x 53 times (the train step's graph warms
+   up and is captured at the first step), one capture and a replay a step,
+   losses finite, ms/step and images/sec beside phase 7's PNG run and
+   phase 5's replayed batch. Then
    ``test-baseline`` on the same files (K1 one a batch, K3 0, metrics
    finite), and neither cv2 nor PIL imported.
 9. Serving: ``cli.start_server`` (the serve command up to its blocking
@@ -131,8 +137,11 @@ Phases (each raises on failure; any failure exits non-zero before the last line)
    tracked hands/sec, ms per frame, peak memory, each frame's final mean
    collision (finite); K1 once per frame, K2 and K3 never.
 11. bf16 training: phase 5's replayed batch with the bf16 encoder
-   (``--bf16``), bn_impl="pallas", 2 warm-up and 20 timed steps; K3 53
-   launches a step, every BatchNorm input bf16, and 53 K3 device kernels in
+   (``--bf16``), bn_impl="pallas", 2 warm-up and 20 timed steps; every
+   BatchNorm input bf16 in the warm-up, whose forwards are the graph's
+   warm-up and capture (2 x 53: a replay runs no Python hook); in the timed
+   steps, as in phase 5, 53 K3 device kernels a step in the trace, 20
+   replays, no capture, no wrapper run and no hook; 53 K3 device kernels in
    one more step under torch.profiler; ms/step beside phase 5's fp32; K3
    over one step's 53 shapes in bf16 (cold L2) with its bound, per shape
    and summed.
@@ -317,6 +326,38 @@ def read_counts():
     torch.cuda.synchronize()
     now = profiling.counters()
     return {name: now.get(c, 0) - _counts_at_zero.get(c, 0) for name, c in LAUNCH_COUNTERS.items()}
+
+
+GRAPH_COUNTERS = {"captures": "train.graph_captures", "replays": "train.graph_replays"}
+
+
+def read_graph_counts():
+    """The train step graph's captures and replays since ``zero_counts``."""
+    from ihmr_tpu_torch import profiling
+
+    now = profiling.counters()
+    return {name: now.get(c, 0) - _counts_at_zero.get(c, 0) for name, c in GRAPH_COUNTERS.items()}
+
+
+def traced_train(fn):
+    """``fn()``, train steps on a state whose graph is captured already,
+    under torch.profiler -> (its result, every kernel's launches as
+    ``read_counts`` gives them but with bn_stats counted among the device
+    kernels of the trace, and the graph's captures, replays and K3
+    wrapper's runs). A replay launches K3 from the graph, where the wrapper
+    and its counter ``k3.launches`` do not run."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    zero_counts()
+    with torch.profiler.profile(activities=acts) as prof:
+        time.sleep(0.01)  # see timing.device_kernels: a kernel right at the start may go unrecorded
+        out = fn()
+        torch.cuda.synchronize()
+        time.sleep(0.01)
+    counts = read_counts()
+    graph = dict(read_graph_counts(), k3_wrapper=counts["bn_stats"])
+    counts["bn_stats"] = sum(1 for e in prof.events()
+                             if e.device_type == torch.autograd.DeviceType.CUDA and "bn_stats" in e.name)
+    return out, counts, graph
 
 
 def check_counts(path, counts, **expected):
@@ -819,19 +860,21 @@ def phase_train_path(dev):
 
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as tmp:
-        zero_counts()
-        run = run_train_pipeline(inputs, TRAIN_STEPS, checkpoints_dir=tmp, evaluate=False)
-        step_counts = read_counts()
+        run, step_counts, graph = traced_train(
+            lambda: run_train_pipeline(inputs, TRAIN_STEPS, checkpoints_dir=tmp, evaluate=False))
         saved = sorted(os.listdir(tmp))
     ms = run.step_seconds / TRAIN_STEPS * 1e3
     log(f"  {TRAIN_STEPS} steps: {ms:.3f} ms/step -> {B / ms * 1e3:.3f} images/sec (host clock over the steps, "
-        f"each ending in a host read of its losses; the checkpoint write excluded); peak device memory "
+        f"each ending in a host read of its losses; the checkpoint write excluded; under torch.profiler); "
+        f"peak device memory allocated (a replay allocates nothing; the graph's pool is reserved) "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; checkpoints {saved}")
     log(f"  total loss {run.total_loss[0]:.5f} -> {run.total_loss[-1]:.5f}")
-    log(f"  launches over the steps: {step_counts} (bn_stats expected {len(bns)} x {TRAIN_STEPS})")
+    log(f"  launches over the steps: {step_counts} (bn_stats: device kernels in the trace, expected {len(bns)} x "
+        f"{TRAIN_STEPS}); the train step's graph: {graph}")
     if len(bns) != 53:
         raise AssertionError(f"ResNet-50 holds {len(bns)} BatchNorms, not 53")
     check_counts("the training steps", step_counts, exact_collision=0, nearest_centroid=0, bn_stats=53 * TRAIN_STEPS)
+    check_counts("the training steps' graph", graph, captures=0, replays=TRAIN_STEPS, k3_wrapper=0)
     check_step_kernels("fp32", inputs)
 
     zero_counts()
@@ -965,12 +1008,14 @@ def phase_small_train(dev):
 
     zero_counts()
     gpu = run_short_train(dev)
-    launches = read_counts()["bn_stats"]
+    launches, graph = read_counts()["bn_stats"], read_graph_counts()
     gaps = short_train_gaps(gpu, run_short_train("cpu"))
-    log(f"small training (ResNet-18 64x64, B=4, 2 steps), card vs CPU: bn_stats launches {launches} (expected 40); "
+    # 20 BatchNorms x (the graph's warm-up run + its capture): a replay launches K3 from the graph
+    log(f"small training (ResNet-18 64x64, B=4, 2 steps), card vs CPU: bn_stats wrapper runs {launches} "
+        f"(expected 40), the train step's graph {graph} (expected 1 capture, 2 replays); "
         + ", ".join(f"{k} gap {v:.3e} (tol {SHORT_TRAIN_TOL[k]})" for k, v in gaps.items())
         + f" ('params' over the closest {PARAMS_SHARE:.1%} of entries)")
-    if launches != 40 or any(v > SHORT_TRAIN_TOL[k] for k, v in gaps.items()):
+    if launches != 40 or graph != dict(captures=1, replays=2) or any(v > SHORT_TRAIN_TOL[k] for k, v in gaps.items()):
         raise AssertionError("the card and the CPU disagree on a small training run")
 
 
@@ -1044,10 +1089,11 @@ def phase_cli_chain(dev, replayed_ms_per_step, ckpt_dir, work):
             f"forward {epoch['forward_seconds']:.3f}s -> {step_ms:.3f} ms/step, {64e3 / step_ms:.3f} images/sec "
             f"(phase 5's replayed batch in this run: {replayed_ms_per_step:.3f} ms/step, "
             f"{64e3 / replayed_ms_per_step:.3f} images/sec); total loss {epoch['total_loss']}; "
-            f"launches {counts['cli_train']}")
-        # 53 BatchNorms a step, each one K3 launch; collision loss off, no evaluation
-        check_counts("train-baseline", counts["cli_train"], exact_collision=0, nearest_centroid=0,
-                     bn_stats=53 * steps)
+            f"launches {counts['cli_train']}; the train step's graph {read_graph_counts()}")
+        # 53 BatchNorms, K3's wrapper run at the graph's warm-up and capture (the first step), the
+        # replays launch K3 from the graph; collision loss off, no evaluation
+        check_counts("train-baseline", counts["cli_train"], exact_collision=0, nearest_centroid=0, bn_stats=2 * 53)
+        check_counts("train-baseline's graph", read_graph_counts(), captures=1, replays=steps)
         if steps != CLI_N // 64 or not np.isfinite(epoch["total_loss"]).all():
             raise AssertionError(f"train-baseline ran {steps} steps, losses {epoch['total_loss']}")
 
@@ -1464,9 +1510,12 @@ def phase_cli_jpeg(dev, smi, replayed_ms_per_step, png_ms_per_step):
                 f"{64e3 / step_ms:.3f} images/sec, on {smi}; in this run: phase 7's PNG files (flip, rescale, "
                 f"position) {png_ms_per_step:.3f} ms/step, {64e3 / png_ms_per_step:.3f} images/sec; phase 5's "
                 f"replayed batch {replayed_ms_per_step:.3f} ms/step, {64e3 / replayed_ms_per_step:.3f} images/sec; "
-                f"total loss {epoch['total_loss']}; launches {counts['cli_jpeg_train']}")
+                f"total loss {epoch['total_loss']}; launches {counts['cli_jpeg_train']}; the train step's graph "
+                f"{read_graph_counts()}")
+            # K3's wrapper at the graph's warm-up and capture, as in phase 7
             check_counts("train-baseline (JPEG)", counts["cli_jpeg_train"], exact_collision=0, nearest_centroid=0,
-                         bn_stats=53 * steps)
+                         bn_stats=2 * 53)
+            check_counts("train-baseline (JPEG)'s graph", read_graph_counts(), captures=1, replays=steps)
             if steps != CLI_N // 64 or not np.isfinite(epoch["total_loss"]).all():
                 raise AssertionError(f"train-baseline (JPEG) ran {steps} steps, losses {epoch['total_loss']}")
             out, counts["cli_jpeg_test"], sec = _cli(["test-baseline"] + common)
@@ -2199,22 +2248,25 @@ def phase_train_bf16(dev, fp32_ms):
     t0 = time.perf_counter()
     run_train_pipeline(inputs, 2, evaluate=False)
     log(f"  warm-up (2 steps): {time.perf_counter() - t0:.2f}s")
-    step_shapes = [shape for shape, _ in seen[: len(bns)]]
-    seen.clear()
-    zero_counts()
-    run = run_train_pipeline(inputs, TRAIN_STEPS, evaluate=False)
-    counts = read_counts()
+    # the forwards that run in Python are the graph's warm-up and capture, both at the first step
+    captured, seen[:] = list(seen), []
+    step_shapes = [shape for shape, _ in captured[: len(bns)]]
+    run, counts, graph = traced_train(lambda: run_train_pipeline(inputs, TRAIN_STEPS, evaluate=False))
     for h in hooks:
         h.remove()
     ms = run.step_seconds / TRAIN_STEPS * 1e3
-    dtypes = sorted({str(d).replace("torch.", "") for _, d in seen})
-    log(f"  {TRAIN_STEPS} steps: {ms:.3f} ms/step -> {64e3 / ms:.3f} images/sec; fp32 (phase 5, same batch, this "
-        f"run) {fp32_ms:.3f} ms/step, bf16/fp32 {ms / fp32_ms:.4f}; total loss {run.total_loss[0]:.5f} -> "
-        f"{run.total_loss[-1]:.5f}; launches {counts}; BatchNorm inputs {len(seen)}, dtypes {dtypes}")
+    dtypes = [str(d).replace("torch.", "") for _, d in captured]
+    log(f"  {TRAIN_STEPS} steps: {ms:.3f} ms/step -> {64e3 / ms:.3f} images/sec (under torch.profiler); fp32 "
+        f"(phase 5, same batch, this run) {fp32_ms:.3f} ms/step, bf16/fp32 {ms / fp32_ms:.4f}; total loss "
+        f"{run.total_loss[0]:.5f} -> {run.total_loss[-1]:.5f}; launches {counts} (bn_stats: device kernels in the "
+        f"trace); the train step's graph {graph}; BatchNorm inputs at the warm-up and capture {len(captured)}, "
+        f"dtypes {sorted(set(dtypes))}; in the timed steps {len(seen)}")
     check_counts("bf16 training", counts, exact_collision=0, nearest_centroid=0, bn_stats=53 * TRAIN_STEPS)
+    check_counts("bf16 training's graph", graph, captures=0, replays=TRAIN_STEPS, k3_wrapper=0)
     check_step_kernels("bf16", inputs)
-    if len(seen) != 53 * TRAIN_STEPS or dtypes != ["bfloat16"] or not np.isfinite(run.total_loss).all():
-        raise AssertionError(f"bf16 training: {len(seen)} BatchNorm inputs of {dtypes}, losses {run.total_loss}")
+    if (dtypes != ["bfloat16"] * (2 * 53) or seen or not np.isfinite(run.total_loss).all()):
+        raise AssertionError(f"bf16 training: {len(captured)} BatchNorm inputs of {sorted(set(dtypes))} at the "
+                             f"capture, {len(seen)} in the timed steps, losses {run.total_loss}")
     del inputs, run
     torch.cuda.empty_cache()
     return dict(counts=counts, ms_per_step=ms, k3_step=bn_step_times(dev, step_shapes, torch.bfloat16))
@@ -2291,7 +2343,11 @@ def main():
     print(smi, flush=True)
     # every kernel's count was zeroed just before each path's run and read
     # just after it; "launches" is their sum and "launches_by_path" keeps them
-    # apart (opt: the timed OPT run; opt_eval: optimize_loop; mlp: the timed
+    # apart. K3's count is its wrapper's runs, except on train and
+    # train_bf16, where it is the device kernels in the trace of the timed
+    # steps (a train step's CUDA graph replay launches K3 with no wrapper
+    # run; the CLI's train commands count the wrapper at the graph's warm-up
+    # and capture). (opt: the timed OPT run; opt_eval: optimize_loop; mlp: the timed
     # MLP run; train: the 20 train steps and one eval_step; baseline_eval:
     # test_baseline_loop; cli_*: each command of the command line, cli_jpeg_*
     # the two on JPEG files with every augmentation; serve, serve_bf16: each

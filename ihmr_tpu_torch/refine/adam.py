@@ -19,7 +19,7 @@ trainer) divides first and multiplies the quotient by the learning rate
 from __future__ import annotations
 
 import functools
-from typing import Dict
+from typing import Dict, Sequence, Union
 
 import torch
 
@@ -43,9 +43,7 @@ class Adam:
         self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor], lr: float
     ) -> Dict[str, torch.Tensor]:
         self.t += 1
-        t = torch.tensor(float(self.t), dtype=torch.float32)
-        c1 = float(1.0 - _B1_F32**t)
-        c2 = float(1.0 - _B2_F32**t)
+        c1, c2 = bias_factors(self.t, cuda=False).tolist()
         out = {}
         for k, p in params.items():
             self.m[k] = B1 * self.m[k] + (1 - B1) * grads[k]
@@ -55,22 +53,23 @@ class Adam:
         return out
 
 
+def bias_factors(t: int, cuda: bool) -> torch.Tensor:
+    """(2,) fp32 on the CPU: what ``Adam.step`` divides the moments by at its
+    t-th step, 1 - b1^t and 1 - b2^t, as that division rounds on a card
+    (``cuda``) or on the CPU. ``Adam.step`` divides by a Python float;
+    PyTorch's CUDA true division by a host scalar multiplies by the scalar's
+    fp32 reciprocal, so for a card these are the reciprocals (a device
+    divisor would round otherwise) and ``adam_update_`` multiplies by them."""
+    tt = torch.tensor(float(t), dtype=torch.float32)
+    c = torch.stack([1.0 - _B1_F32**tt, 1.0 - _B2_F32**tt])
+    return torch.tensor(1.0, dtype=torch.float32) / c if cuda else c
+
+
 @functools.lru_cache(maxsize=None)
 def bias_corrections(steps: int, device: torch.device) -> torch.Tensor:
-    """(steps, 2) fp32 on ``device``: row t - 1 holds what ``Adam.step``
-    divides the moments by at its t-th step, 1 - b1^t and 1 - b2^t, as that
-    division rounds there. ``Adam.step`` divides by a Python float; PyTorch's
-    CUDA true division by a host scalar multiplies by the scalar's fp32
-    reciprocal, so on a card the rows hold the reciprocals (a 0-dim device
-    divisor would round otherwise) and ``adam_update_`` multiplies by them.
-    Made once per length and device; never write into it."""
-    cuda = device.type == "cuda"
-    one = torch.tensor(1.0, dtype=torch.float32)
-    rows = []
-    for t in range(1, steps + 1):
-        tt = torch.tensor(float(t), dtype=torch.float32)
-        c = torch.stack([1.0 - _B1_F32**tt, 1.0 - _B2_F32**tt])
-        rows.append(one / c if cuda else c)
+    """(steps, 2) fp32 on ``device``: row t - 1 holds ``bias_factors(t)``
+    for that device. Made once per length and device; never write into it."""
+    rows = [bias_factors(t, device.type == "cuda") for t in range(1, steps + 1)]
     with torch.inference_mode(False):
         return torch.stack(rows).to(device)
 
@@ -81,15 +80,20 @@ def adam_update_(
     grads: Dict[str, torch.Tensor],
     m: Dict[str, torch.Tensor],
     v: Dict[str, torch.Tensor],
-    corr: torch.Tensor,
-    lr: float,
+    corr: Sequence[torch.Tensor],
+    lr: Union[float, torch.Tensor],
+    lr_last: bool = False,
 ) -> None:
-    """One Adam step of the OPT engine in place, for a captured CUDA graph:
-    ``params``, ``m`` and ``v`` are overwritten, and the step's bias
-    corrections are read from the device (``corr``, a row of
-    ``bias_corrections``), so that the step count need not be known when the
-    graph is captured. The same kernels and rounding as ``Adam.step`` with
-    ``lr_last=False``, whose own code serves every other caller."""
+    """One Adam step in place, for a captured CUDA graph: ``params``, ``m``
+    and ``v`` are overwritten, and the step's bias corrections are read from
+    the device (``corr[0]``, ``corr[1]``: a row of ``bias_corrections`` or
+    tensors filled with ``bias_factors``), so that the step count need not
+    be known when the graph is captured. The same kernels and rounding as
+    ``Adam.step`` with the same ``lr_last``, whose own code serves every
+    other caller: the OPT engine's order with a host ``lr``, or optax's
+    (``lr_last=True``, the train step's), where ``lr`` may be a 0-dim fp32
+    device tensor that holds the learning rate, so that a captured step
+    reads the one set before each replay."""
     for k, p in params.items():
         torch.add(B1 * m[k], (1 - B1) * grads[k], out=m[k])
         torch.add(B2 * v[k], (1 - B2) * grads[k] ** 2, out=v[k])
@@ -97,7 +101,10 @@ def adam_update_(
             m_hat, v_hat = m[k] * corr[0], v[k] * corr[1]
         else:
             m_hat, v_hat = m[k] / corr[0], v[k] / corr[1]
-        torch.sub(p, lr * m_hat / (torch.sqrt(v_hat) + EPS), out=p)
+        if lr_last:
+            torch.sub(p, lr * (m_hat / (torch.sqrt(v_hat) + EPS)), out=p)
+        else:
+            torch.sub(p, lr * m_hat / (torch.sqrt(v_hat) + EPS), out=p)
 
 
 SGD_MOMENTUM = 0.9

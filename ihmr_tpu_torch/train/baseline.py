@@ -11,8 +11,28 @@ State: the JAX package threads params, BatchNorm statistics and the optax
 state through a pure jitted step. Here the encoder module holds the
 parameters and the running statistics, updated in place, and ``Adam``
 (``refine/adam.py``, optax's rounding order ``lr_last=True``) holds the
-moments over the encoder's named parameters. The learning rate is a plain
-field, as optax's ``inject_hyperparams`` keeps it in the state.
+moments over the encoder's named parameters and the step count. The
+learning rate is a plain field (``state.lr``), as optax's
+``inject_hyperparams`` keeps it in the state, and ``set_learning_rate``
+sets it between steps.
+
+The step as one CUDA graph (``train_step``): with the collision loss off,
+the whole step (forward, losses, backward and Adam) is a function of static
+tensors (``_StaticStep``): the batch is copied into buffers of its layout,
+Adam updates the parameters and both moments in place, and it reads the
+learning rate and the step's two bias-correction factors from 0-dim device
+tensors that the host fills before each call (``fill_``, no host-device
+synchronisation) from ``state.lr`` and ``state.adam.t``. On a card that
+function is captured at the first step (``refine/opt_graph.StepGraph``,
+counters ``train.graph_captures`` / ``train.graph_replays``, span
+``train.replay``) into a memory pool of its own and replayed at every step,
+so a step costs the host one launch for its ~6900 kernels; off the card it
+is called directly. The graph is kept in the state (``graphs``), so
+dropping the state frees the capture's memory, and is rebuilt when the
+batch's layout, the configuration or a tensor the step reads is another.
+With the collision loss on (payloads of data-dependent shapes, which a
+capture cannot take) the same function runs eagerly on every device, on
+the caller's batch and never captured.
 
 Train-mode BatchNorm is flax's (``models/resnet.py::BatchNorm``); with
 ``bn_impl="pallas"`` every one of them launches the kernel K3. ``eval_step``
@@ -32,8 +52,8 @@ primary's parameters.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from dataclasses import dataclass, field, fields
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,7 +66,8 @@ from ihmr_tpu_torch.models.encoder import InterHandEncoder
 from ihmr_tpu_torch.ops.collision import collision_loss
 from ihmr_tpu_torch.parallel.mesh import Replicated, Sharded, current_shard, replicate
 from ihmr_tpu_torch.profiling import count, span
-from ihmr_tpu_torch.refine.adam import Adam
+from ihmr_tpu_torch.refine import opt_graph
+from ihmr_tpu_torch.refine.adam import Adam, adam_update_, bias_factors
 
 
 @dataclass(frozen=True)
@@ -90,6 +111,9 @@ class BaselineState:
     mean_params: torch.Tensor  # (122,)
     lr: float
     epoch: int = 0
+    # the train step's graph, kept with its layout (``train_step``); not a field
+    # that copies of the state (``replicate``) carry
+    graphs: Dict = field(default_factory=dict, init=False, repr=False, compare=False)
 
 
 def create_state(encoder: InterHandEncoder, mean_params: torch.Tensor, config: TrainConfig) -> BaselineState:
@@ -225,18 +249,96 @@ def train_step(
 ) -> Tuple[BaselineState, Dict[str, torch.Tensor]]:
     """One Adam step at ``state.lr`` on the total loss, with train-mode
     BatchNorm (batch statistics; running statistics updated in place).
-    Returns (state, metrics); the metrics are detached device tensors."""
+    Returns (state, metrics); the metrics are detached device tensors of
+    their own. With the collision loss off, one replay of the step's CUDA
+    graph on a card (module docstring); eagerly with it on."""
     with span("train.step"):
         count("train.steps")
-        encoder = state.encoder.train()
+        state.encoder.train()
+        t = state.adam.t + 1
+        if config.use_collision_loss:
+            step = _StaticStep(state, batch, mano_right, mano_left, config)
+            step.load(state.lr, t)
+            out = step()
+        else:
+            layout = _StaticStep.layout(state, batch, mano_right, mano_left, config)
+            graph = opt_graph.cached("train_step", layout, lambda: _StaticStep.graph(
+                state, batch, mano_right, mano_left, config), store=state.graphs)
+            step = graph.fn
+            step.load(state.lr, t, batch)
+            # a copy, so that a caller may keep a step's metrics past the next replay
+            out = graph.replay().clone()
+        state.adam.t = t
+        return state, dict(zip(step.names, out.unbind()))
+
+
+class _StaticStep:
+    """``train_step``'s work over static tensors, the function that one
+    ``opt_graph.StepGraph`` captures (or that runs directly, with the
+    collision loss): the forward and the losses on ``batch`` (for a graph,
+    buffers that ``load`` copies each step's batch into), ``autograd.grad``
+    of the total, and ``adam_update_`` in place on the encoder's parameters
+    and the state's moments at the learning rate and bias corrections that
+    ``load`` fills in. Returns the metrics stacked (names in ``names``).
+    Holds no reference to the state, whose ``graphs`` hold it: dropping the
+    state frees the graph at once, not at a garbage collection."""
+
+    def __init__(self, state: BaselineState, batch: BaselineBatch, mano_right, mano_left, config: TrainConfig):
+        self.encoder, self.mean_params, self.config = state.encoder, state.mean_params, config
+        self.mano = (mano_right, mano_left)
+        self.batch = batch
+        self.params = dict(state.encoder.named_parameters())
+        self.m, self.v = dict(state.adam.m), dict(state.adam.v)
+        device = state.mean_params.device
+        self.lr, *self.corr = (torch.zeros((), dtype=torch.float32, device=device) for _ in range(3))
+        self.cuda, self.lr_last = device.type == "cuda", state.adam.lr_last
+        self.names: List[str] = []
+
+    @staticmethod
+    def layout(state: BaselineState, batch: BaselineBatch, mano_right, mano_left, config: TrainConfig) -> tuple:
+        """What a capture bakes in: the batch's shapes, strides, dtypes and
+        devices, the configuration, and the objects whose tensors it reads
+        and writes (by identity: the graph holds them, so an id is not
+        reused while it is kept). A parameter or buffer replaced inside the
+        encoder, not copied into, is not seen."""
+        tensors = tuple((k, tuple(x.shape), x.stride(), x.dtype, x.device) for k, x in _batch_fields(batch))
+        held = (state.encoder, state.mean_params, mano_right, mano_left, *state.adam.m.values(),
+                *state.adam.v.values())
+        return tensors, config, tuple(map(id, held))
+
+    @classmethod
+    def graph(cls, state, batch, mano_right, mano_left, config) -> opt_graph.StepGraph:
+        buffers = BaselineBatch(**{k: torch.empty_strided(x.size(), x.stride(), dtype=x.dtype, device=x.device)
+                                   for k, x in _batch_fields(batch)})
+        step = cls(state, buffers, mano_right, mano_left, config)
+        written = [*(p.detach() for p in step.params.values()), *step.m.values(), *step.v.values(),
+                   *state.encoder.buffers()]
+        return opt_graph.StepGraph(step, written, state.mean_params.device, name="train", shared_pool=False)
+
+    def load(self, lr: float, t: int, batch: Optional[BaselineBatch] = None) -> None:
+        """The learning rate, the bias corrections of Adam's ``t``-th step
+        and ``batch`` (where given) into the static tensors, without a host
+        sync."""
+        for k, x in _batch_fields(batch) if batch is not None else ():
+            getattr(self.batch, k).copy_(x)
+        self.lr.fill_(lr)
+        for c, f in zip(self.corr, bias_factors(t, self.cuda).tolist()):
+            c.fill_(f)
+
+    def __call__(self) -> torch.Tensor:
         total, metrics, _ = forward_and_loss(
-            encoder, state.mean_params, batch, mano_right, mano_left, config, train=True
+            self.encoder, self.mean_params, self.batch, *self.mano, self.config, train=True
         )
-        params = dict(encoder.named_parameters())
         with span("train.backward"):
-            grads = torch.autograd.grad(total, list(params.values()))
-        _adam_update(state, dict(zip(params, grads)))
-        return state, {k: v.detach() for k, v in metrics.items()}
+            grads = torch.autograd.grad(total, list(self.params.values()))
+        with span("train.adam"):
+            adam_update_(self.params, dict(zip(self.params, grads)), self.m, self.v, self.corr, self.lr, self.lr_last)
+        self.names = list(metrics)
+        return torch.stack([v.detach() for v in metrics.values()])
+
+
+def _batch_fields(batch: BaselineBatch):
+    return [(f.name, getattr(batch, f.name)) for f in fields(BaselineBatch)]
 
 
 def _adam_update(state: BaselineState, grads: Dict[str, torch.Tensor]) -> None:

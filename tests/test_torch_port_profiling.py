@@ -151,9 +151,11 @@ def test_train_step_records_its_phases():
     from ihmr_tpu_torch.train.baseline import train_step
 
     inputs = make_train_bench_inputs(batch=2, image_size=64, arch="resnet18", bn_impl="stock", device="cpu")
+    train_step(inputs.state, inputs.batch, inputs.mano_right, inputs.mano_left, inputs.config)  # the capture
     with profiling.recording() as rec:
         train_step(inputs.state, inputs.batch, inputs.mano_right, inputs.mano_left, inputs.config)
-    assert _names(rec) == {"train.step": 1, "enc.forward": 1, "train.losses": 1, "train.backward": 1,
-                           "train.adam": 1}
-    assert rec.counters == {"train.steps": 1}
-    assert [s[1] for s in rec.spans] == [None, 0, 0, 0, 0]  # every phase directly under the step
+    assert _names(rec) == {"train.step": 1, "train.replay": 1, "enc.forward": 1, "train.losses": 1,
+                           "train.backward": 1, "train.adam": 1}
+    assert rec.counters == {"train.steps": 1, "train.graph_replays": 1}
+    # the replay under the step and every phase under the replay (on a card the replay has no phases)
+    assert [s[1] for s in rec.spans] == [None, 0, 1, 1, 1, 1]
